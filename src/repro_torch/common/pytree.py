@@ -1,0 +1,50 @@
+"""Nested-dict tensor trees: the port's stand-in for JAX pytrees.
+
+Parameter trees are plain dicts of dicts of tensors. Leaves are visited in
+sorted-key order, the order ``jax.tree_util`` flattens a dict in, so a
+flattened message lines up row for row with the reference's.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def tree_flatten(tree):
+    """(leaves in sorted-key order, treedef) of a nested dict."""
+    if isinstance(tree, dict):
+        leaves, treedef = [], {}
+        for k in sorted(tree):
+            sub, treedef[k] = tree_flatten(tree[k])
+            leaves.extend(sub)
+        return leaves, treedef
+    return [tree], None
+
+
+def tree_unflatten(treedef, leaves):
+    it = iter(leaves)
+
+    def build(d):
+        return next(it) if d is None else {k: build(v) for k, v in d.items()}
+
+    return build(treedef)
+
+
+def tree_leaves(tree):
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leafwise over trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_dot(a, b):
+    """Inner product of two trees, summed in fp32."""
+    return sum(torch.sum(x.float() * y.float())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_norm(tree):
+    return torch.sqrt(tree_dot(tree, tree))

@@ -1,0 +1,135 @@
+"""Message compression for the C-HSGD / C-TDCD baselines (paper §VII-A1).
+
+Top-k sparsification keeps the k largest-magnitude entries of each message
+row; b-level quantization snaps the survivors to a uniform grid. The paper
+compresses forward *messages*, not gradients, so nothing here needs a
+backward.
+
+``compress_rows_ref`` is the plain PyTorch version of the fused kernel in
+``kernels/compress.py`` and the path every CPU tensor takes. It runs the op
+sequence of ``repro/core/compression.py::compress_rows_ref`` one eager op at
+a time, which fixes its rounding: IEEE division, no fused multiply-add in
+the dequantize, round-half-to-even. The CUDA kernel reproduces exactly that
+sequence, so on the card the two agree bit for bit.
+
+Top-k is a fixed 16-step bisection on the magnitude threshold against the
+row max (``count >= k`` keeps ≥ k survivors: the exact top-k support, plus
+ties). The DP stage of the reference comes with the privacy slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+
+N_REFINE = 16  # threshold tight to max|x| / 2^16
+
+
+def compress_rows_ref(
+    x: torch.Tensor,
+    k: Union[int, torch.Tensor],
+    levels: int = 0,
+    row_len: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused top-k sparsify + b-level quantize over the last axis of ``x``.
+
+    x: [rows, n]. k: scalar or [rows]/[rows,1] per-row keep count (k >= n is
+    a per-row no-op). levels <= 1 disables quantization. row_len: optional
+    [rows]/[rows,1] valid length for ragged rows — entries at column >=
+    row_len are excluded from thresholds/extrema and zeroed in the output.
+    """
+    if not isinstance(k, int):
+        k = torch.as_tensor(k, device=x.device).to(torch.int32).reshape(-1, 1)
+    xf = x.float()
+    if row_len is None:
+        valid = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    else:
+        row_len = torch.as_tensor(row_len, device=x.device).to(torch.int32).reshape(-1, 1)
+        valid = torch.arange(x.shape[1], dtype=torch.int32, device=x.device) < row_len
+    zero = xf.new_zeros(())
+    mag = torch.where(valid, xf.abs(), zero)
+    hi = mag.amax(dim=-1, keepdim=True)
+    lo = torch.zeros_like(hi)
+    for _ in range(N_REFINE):
+        # invariant: count(lo) >= k > count(hi); converge on the largest
+        # threshold still keeping >= k survivors (count >= k, NOT > k)
+        mid = 0.5 * (lo + hi)
+        count = ((mag >= mid) & valid).to(torch.int32).sum(dim=-1, keepdim=True)
+        ok = count >= k
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+    kept = (mag >= lo) & valid  # >= k survivors (exactly k up to ties)
+    y = torch.where(kept, xf, zero)
+    if levels and levels > 1:
+        # grid over the SURVIVORS' value range; pruned entries re-zeroed
+        qlo = torch.where(kept, y, math.inf).amin(dim=-1, keepdim=True)
+        qhi = torch.where(kept, y, -math.inf).amax(dim=-1, keepdim=True)
+        span = torch.clamp_min(qhi - qlo, 1e-12)
+        # divide by a tensor, not a Python number: CUDA turns division by a
+        # host scalar into multiplication by its reciprocal
+        scale = span / torch.full_like(span, levels - 1)
+        y = torch.where(kept, torch.round((y - qlo) / scale) * scale + qlo, zero)
+    return torch.where(valid, y, zero).to(x.dtype)
+
+
+def topk_sparsify(x: torch.Tensor, k_frac: float) -> torch.Tensor:
+    """Keep ~round(k_frac * n) largest-|x| entries of each row; zero the rest.
+
+    Operates on the last axis (>= k survivors, exact top-k support kept).
+    k_frac >= 1 is a no-op.
+    """
+    if k_frac >= 1.0:
+        return x
+    n = x.shape[-1]
+    k = max(1, int(round(k_frac * n)))
+    return compress_rows_ref(x.reshape(-1, n), k, levels=0).reshape(x.shape)
+
+
+def quantize(x: torch.Tensor, levels: int) -> torch.Tensor:
+    """Uniform b-level quantize/dequantize per row (last axis), on a grid
+    anchored at zero, so already-sparsified rows stay sparse."""
+    if levels <= 1:
+        return x
+    lo = x.amin(dim=-1, keepdim=True)
+    hi = x.amax(dim=-1, keepdim=True)
+    span = torch.clamp_min(hi - lo, 1e-12)
+    scale = span / torch.full_like(span, levels - 1)
+    return (torch.round(x / scale) * scale).to(x.dtype)
+
+
+def compress_message(x: torch.Tensor, k_frac: float, levels: int = 0) -> torch.Tensor:
+    """Compress one message tensor (any rank >= 1) along its last axis, as a
+    single [rows, n] call through the kernel router."""
+    if not (0.0 < k_frac < 1.0) and not (levels and levels > 1):
+        return x
+    from repro_torch.kernels.compress import compress_rows  # lazy: avoids import cycle
+
+    n = x.shape[-1]
+    k = n if not (0.0 < k_frac < 1.0) else max(1, int(round(k_frac * n)))
+    return compress_rows(x.reshape(-1, n), k, levels).reshape(x.shape)
+
+
+# (k_frac, levels) rungs ordered loosest -> tightest wire size; rung 0 is the
+# uncompressed message (the adaptive controller's ladder).
+COMPRESSION_LADDER = (
+    (0.0, 0),     # uncompressed
+    (0.5, 128),   # top-50% + b=128 quantization
+    (0.25, 128),  # the paper's C-HSGD operating point (§VII-A1)
+    (0.1, 128),
+    (0.05, 64),
+)
+
+
+def compressed_bytes(n_elements: int, k_frac: float, levels: int, dense_bytes_per_el: int = 4) -> float:
+    """Wire size of a compressed message.
+
+    top-k: k values + k indices (32-bit); quantization: log2(b) bits/value.
+    Matches the paper's 'compression ratio log2(b)/32' accounting.
+    """
+    k = n_elements if not (0.0 < k_frac < 1.0) else max(1, int(round(k_frac * n_elements)))
+    bits_per_val = dense_bytes_per_el * 8
+    if levels and levels > 1:
+        bits_per_val = max(1, math.ceil(math.log2(levels)))
+    value_bytes = k * bits_per_val / 8.0
+    index_bytes = 0.0 if k == n_elements else k * 4.0
+    return value_bytes + index_bytes

@@ -1,0 +1,129 @@
+"""Fused top-k sparsify + b-level quantize (C-HSGD §VII-A1) on the card.
+
+``fused_compress`` launches the hand-written CUDA kernel in
+``csrc/compress.cu``, the port of the TPU kernel
+``repro/kernels/compress.py::_fused_compress_call`` (``_compress_kernel``).
+One read and one write per message row; the kernel is bit-identical to the
+plain version ``core/compression.py::compress_rows_ref``.
+
+``compress_rows`` routes by the tensor's device alone: a CPU tensor goes to
+the plain version, a CUDA tensor to the kernel. There is no switch and no
+fallback: what the kernel does not take raises.
+
+``compress_pytree`` stacks every leaf of a message tree into one padded
+row matrix with a per-row valid length, so a whole exchange message
+(θ0 + ζ1 + ζ2) costs one launch.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.pytree import tree_flatten, tree_unflatten
+from repro_torch.core.compression import compress_rows_ref
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels.build import load
+
+# One row lives in one block's shared memory (227 KB on Hopper).
+MAX_ROW_BYTES = 232448
+
+
+def _per_row(v, rows: int, device) -> torch.Tensor:
+    t = torch.as_tensor(v, device=device).to(torch.int32).reshape(-1)
+    if t.numel() == 1:
+        return t.expand(rows).contiguous()
+    if t.numel() != rows:
+        raise ValueError(f"per-row operand has {t.numel()} entries for {rows} rows")
+    return t.contiguous()
+
+
+def fused_compress(
+    x: torch.Tensor,
+    k: Union[int, torch.Tensor],
+    levels: int = 0,
+    row_len: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The CUDA kernel: x [rows, n] fp32 contiguous on the card -> same.
+
+    k: scalar or per-row keep count (k >= n is a per-row no-op). levels <= 1
+    disables quantization. row_len: optional per-row valid length.
+    """
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_compress runs on a CUDA tensor, got device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_compress takes float32, got {x.dtype}")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"fused_compress takes a contiguous [rows, n] matrix, got "
+                         f"shape {tuple(x.shape)} strides {x.stride()}")
+    rows, n = x.shape
+    if n * 4 > MAX_ROW_BYTES:
+        raise ValueError(f"a row of {n} floats does not fit in one block's shared memory "
+                         f"({MAX_ROW_BYTES} bytes)")
+    k_arr = _per_row(k, rows, x.device)
+    len_arr = _per_row(n if row_len is None else row_len, rows, x.device)
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    lib = load("compress")
+    with torch.cuda.device(x.device):
+        err = lib.compress_rows_f32(
+            x.data_ptr(), k_arr.data_ptr(), len_arr.data_ptr(), out.data_ptr(),
+            rows, n, int(levels), torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"compress_rows_f32 launch failed: {lib.cuda_error_string(err).decode()}")
+    launch_counts["fused_compress"] += 1
+    return out
+
+
+def compress_rows(
+    x: torch.Tensor,
+    k: Union[int, torch.Tensor],
+    levels: int = 0,
+    row_len: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Router: the plain version for a CPU tensor, the kernel otherwise."""
+    if x.device.type == "cpu":
+        return compress_rows_ref(x, k, levels, row_len)
+    return fused_compress(x, k, levels, row_len)
+
+
+def stack_rows(leaves, k_frac: float):
+    """The message leaves as one fp32 row matrix, each leaf viewed as rows of
+    its trailing axis and padded to the widest: (matrix, per-row k, per-row
+    valid length, rows per leaf). Per-leaf k is ``max(1, round(k_frac *
+    width))`` when 0 < k_frac < 1, else the full width."""
+    do_topk = 0.0 < k_frac < 1.0
+    widths = [int(leaf.shape[-1]) if leaf.dim() else 1 for leaf in leaves]
+    n_max = max(widths)
+    mats = []
+    for leaf, n in zip(leaves, widths):
+        m = leaf.float().reshape(-1, n)
+        mats.append(F.pad(m, (0, n_max - n)) if n < n_max else m)
+    counts = [m.shape[0] for m in mats]
+    ks = [max(1, int(round(k_frac * n))) if do_topk else n for n in widths]
+    device = leaves[0].device
+    k_rows = torch.from_numpy(np.repeat(np.asarray(ks, np.int32), counts)).to(device)
+    len_rows = torch.from_numpy(np.repeat(np.asarray(widths, np.int32), counts)).to(device)
+    return torch.cat(mats, dim=0), k_rows, len_rows, counts
+
+
+def compress_pytree(tree, k_frac: float, levels: int = 0):
+    """Compress every leaf of a message tree in ONE batched row-matrix call.
+
+    The leaves are stacked by ``stack_rows``; the per-row valid length keeps
+    the result identical to compressing each leaf separately.
+    """
+    if not (0.0 < k_frac < 1.0) and not (levels and levels > 1):
+        return tree
+    leaves, treedef = tree_flatten(tree)
+    mat, k_rows, len_rows, counts = stack_rows(leaves, k_frac)
+    out = compress_rows(mat, k_rows, levels, len_rows)
+    new_leaves, off = [], 0
+    for leaf, r in zip(leaves, counts):
+        n = int(leaf.shape[-1]) if leaf.dim() else 1
+        new_leaves.append(out[off:off + r, :n].reshape(leaf.shape).to(leaf.dtype))
+        off += r
+    return tree_unflatten(treedef, new_leaves)

@@ -1,0 +1,120 @@
+"""Where the time of an e-health training run goes on the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_train \
+      --algorithm c-hsgd --rounds 5 [--trace out.json] [train flags]
+
+Runs one warm-up round, then times ``--rounds`` rounds twice: once
+on the host clock alone (ending in ``torch.cuda.synchronize``), once under
+``torch.profiler``. From the profiler's trace it reads the interval of
+every kernel, copy and memset the device ran, and prints one JSON line:
+steps/s, the time the device was busy (the union of those intervals)
+against the unprofiled wall time, kernels per step, the launches and
+device time of the port's own kernels, and the kernels that took the most
+device time. ``--trace`` keeps the Chrome trace. It takes the training flags of ``repro_torch.launch.train``
+and needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+from collections import defaultdict
+
+import torch
+
+from repro_torch.common.backend import resolve_device
+from repro_torch.core.baselines import make_runner
+from repro_torch.core.hsgd import init_state
+from repro_torch.launch import train as T
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# The port's hand-written kernels, by the name of their __global__ function.
+PORT_KERNELS = ("compress_rows_kernel",)
+
+
+def device_intervals(trace_path: str):
+    """(category, name, start µs, duration µs) of every kernel, copy and
+    memset the device ran, from a Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["cat"], e["name"], float(e["ts"]), float(e["dur"])) for e in events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of the device intervals."""
+    total, end = 0.0, float("-inf")
+    for _, _, ts, dur in sorted(intervals, key=lambda k: k[2]):
+        lo, hi = max(ts, end), ts + dur
+        if hi > lo:
+            total += hi - lo
+        end = max(end, hi)
+    return total
+
+
+def port_kernel_times(intervals):
+    """Launches and device µs of each of the port's own kernels."""
+    out = {}
+    for key in PORT_KERNELS:
+        durs = [dur for cat, name, _, dur in intervals if cat == "kernel" and key in name]
+        out[key] = {"launches": len(durs), "us": sum(durs)}
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--trace", default=None)
+    own, rest = ap.parse_known_args(argv)
+    args = T.parse_args(rest)
+    device = resolve_device(args.device)
+    if device.type != "cuda":
+        raise SystemExit("profile_train measures the card: run it with --device cuda")
+    model, fed, train, data, w, _ = T.setup_ehealth(args, device)
+    runner, eff_fed = make_runner(args.algorithm, model, fed, train)
+    state = init_state(torch.Generator().manual_seed(args.seed), model, eff_fed, data)
+    state, _ = runner.run(state, data, w, 1)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    state, losses = runner.run(state, data, w, args.rounds)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    steps = int(losses.numel())
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, _ = runner.run(state, data, w, args.rounds)
+        torch.cuda.synchronize()
+        profiled_wall_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = own.trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        intervals = device_intervals(path)
+    by_name = defaultdict(float)
+    for _, name, _, dur in intervals:
+        by_name[name] += dur
+    busy = busy_us(intervals) / 1e6
+    n_kernels = sum(1 for cat, *_ in intervals if cat == "kernel")
+    out = {
+        "device": torch.cuda.get_device_name(0),
+        "algorithm": args.algorithm, "groups": args.groups, "devices": args.devices,
+        "rounds": args.rounds, "steps": steps,
+        "wall_s": wall_s, "steps_per_s": steps / wall_s,
+        "profiled_wall_s": profiled_wall_s,
+        "device_busy_s": busy,
+        "device_busy_share_of_wall": busy / wall_s,
+        "kernels_per_step": n_kernels / steps,
+        "port_kernels": port_kernel_times(intervals),
+        "top_kernels_us": sorted(((n, t) for n, t in by_name.items()),
+                                 key=lambda kv: -kv[1])[:8],
+    }
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

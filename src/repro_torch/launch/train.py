@@ -1,0 +1,197 @@
+"""Training launcher — the end-to-end driver for the HSGD federation.
+
+E-health simulation (paper reproduction): --model paper-cnn|paper-lstm with
+--dataset organamnist|mimic3|esr runs Algorithm 1 (or a baseline) on the
+3-tier partitioned synthetic data and reports the paper's metrics. It runs on
+the card unless ``--device cpu`` is given.
+
+The parser takes every flag of ``repro.launch.train``; the fixed-interval
+e-health path is what this package runs so far. The adaptive, population,
+privacy, fault, checkpoint and ``--arch`` flags raise ``SystemExit``.
+
+Example:
+  PYTHONPATH=src python -m repro_torch.launch.train --model paper-cnn \
+      --algorithm c-hsgd --rounds 50
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.backend import resolve_device
+from repro_torch.common.config import FederationConfig, TrainConfig
+from repro_torch.core import metrics as MET
+from repro_torch.core.baselines import make_runner, merge_groups_for_tdcd
+from repro_torch.core.hsgd import global_model, init_state, make_group_weights
+from repro_torch.data.partition import hybrid_partition
+from repro_torch.data.synthetic import DATASETS, flatten_for_tower, make_dataset, vertical_split
+from repro_torch.models.split_model import cnn_hybrid, lstm_hybrid
+
+# Flags of the reference CLI whose paths come with later slices.
+NOT_PORTED = (
+    "arch", "smoke", "adaptive", "population", "dp_clip", "dp_sigma", "epsilon",
+    "secure_agg", "checkpoint", "ckpt_every", "resume", "fault_dropout", "fault_nan",
+    "fault_outlier", "fault_msg_corrupt", "fault_msg_loss", "fault_msg_dup",
+    "fault_latency", "preempt_round", "fault_seed", "fault_trace", "no_defense",
+)
+
+
+def make_paper_model(name: str, dataset: str):
+    if name == "paper-cnn":
+        return cnn_hybrid(h_rows=11, n_classes=DATASETS[dataset].n_classes)
+    spec = DATASETS[dataset]
+    if spec.name == "esr":
+        return lstm_hybrid(n_features=178, hospital_features=89, n_classes=spec.n_classes)
+    return lstm_hybrid(n_features=76, hospital_features=36, n_classes=spec.n_classes)
+
+
+def setup_ehealth(args, device):
+    """The configs, model and federated data of an e-health run: (model,
+    fed, train, data on ``device``, group weights, (X, y) host dataset)."""
+    spec = DATASETS[args.dataset]
+    fed = FederationConfig(
+        num_groups=args.groups,
+        devices_per_group=args.devices,
+        alpha=args.alpha,
+        local_interval=args.q,
+        global_interval=args.p,
+        robust_agg=args.robust_agg,
+        trim_frac=args.trim_frac,
+    )
+    train = TrainConfig(
+        learning_rate=args.lr,
+        lr_halve_every=args.lr_halve_every,
+        compression_k=args.compression_k,
+        quantization_bits=args.quantization,
+    )
+    model = make_paper_model(args.model, args.dataset)
+    X, y = make_dataset(spec, args.samples, seed=args.seed)
+    raw = hybrid_partition(spec, X, y, fed, seed=args.seed).stacked()
+    if args.algorithm in ("tdcd", "c-tdcd", "centralized"):
+        # both run one merged group; the reference merges for tdcd only, so
+        # its centralized run fails on the [M, K] vs [1, M·K] data shapes
+        raw = merge_groups_for_tdcd(raw)
+    data = {k: torch.as_tensor(v, device=device) for k, v in raw.items()}
+    return model, fed, train, data, make_group_weights(data), (X, y)
+
+
+def run_ehealth(args) -> Tuple[dict, np.ndarray]:
+    """Train and evaluate; prints the metrics JSON and returns it with the
+    per-step training losses."""
+    device = resolve_device(args.device)
+    spec = DATASETS[args.dataset]
+    model, fed, train, data, w, (X, y) = setup_ehealth(args, device)
+    algo = args.algorithm
+    runner, eff_fed = make_runner(algo, model, fed, train)
+    generator = torch.Generator().manual_seed(args.seed)
+    if algo == "jfl":
+        state = runner.init(generator, device)
+    else:
+        state = init_state(generator, model, eff_fed, data)
+
+    t0 = time.time()
+    state, losses = runner.run(state, data, w, rounds=args.rounds)
+    losses = losses.cpu().numpy()  # waits for the device
+    dt = time.time() - t0
+    gm = runner.global_model(state, w) if algo == "jfl" else global_model(state, w)
+
+    X1, X2 = vertical_split(spec, X)
+    m = MET.evaluate_global(
+        model, gm, flatten_for_tower(spec, X1), flatten_for_tower(spec, X2), y
+    )
+    m["train_loss_final"] = float(losses[-1]) if len(losses) else float("nan")
+    m["steps"] = int(len(losses))
+    m["wall_s"] = round(dt, 2)
+    print(json.dumps(m, indent=1))
+    return m, losses
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises if absent) or cpu")
+    ap.add_argument("--model", default=None, choices=["paper-cnn", "paper-lstm"])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--dataset", default="organamnist", choices=list(DATASETS))
+    ap.add_argument("--algorithm", default="hsgd",
+                    choices=["hsgd", "c-hsgd", "jfl", "tdcd", "c-tdcd", "centralized"])
+    ap.add_argument("--groups", type=int, default=10)
+    ap.add_argument("--devices", type=int, default=64)
+    ap.add_argument("--alpha", type=float, default=0.25)
+    ap.add_argument("--samples", type=int, default=2048)
+    ap.add_argument("--rounds", type=int, default=50)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--p", type=int, default=4)
+    ap.add_argument("--q", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--lr-halve-every", type=int, default=0)
+    ap.add_argument("--compression-k", type=float, default=0.0)
+    ap.add_argument("--quantization", type=int, default=0)
+    ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--adaptive", action="store_true")
+    ap.add_argument("--byte-budget-mb", type=float, default=float("inf"))
+    ap.add_argument("--target-bound", type=float, default=float("inf"))
+    ap.add_argument("--max-interval", type=int, default=32)
+    ap.add_argument("--population", default=None, choices=["sync", "semi_async", "adaptive"])
+    ap.add_argument("--pop-devices", type=int, default=64)
+    ap.add_argument("--cohort", type=int, default=8)
+    ap.add_argument("--deadline-quantile", type=float, default=0.8)
+    ap.add_argument("--staleness-damping", type=float, default=0.6)
+    ap.add_argument("--max-staleness", type=int, default=4)
+    ap.add_argument("--t-compute", type=float, default=0.05)
+    ap.add_argument("--time-budget", type=float, default=float("inf"))
+    ap.add_argument("--trace-seed", type=int, default=None)
+    ap.add_argument("--robust-agg", default="mean", choices=["mean", "median", "trimmed"])
+    ap.add_argument("--trim-frac", type=float, default=0.1)
+    ap.add_argument("--no-defense", action="store_true")
+    ap.add_argument("--fault-dropout", type=float, default=0.0)
+    ap.add_argument("--fault-nan", type=float, default=0.0)
+    ap.add_argument("--fault-outlier", type=float, default=0.0)
+    ap.add_argument("--fault-msg-corrupt", type=float, default=0.0)
+    ap.add_argument("--fault-msg-loss", type=float, default=0.0)
+    ap.add_argument("--fault-msg-dup", type=float, default=0.0)
+    ap.add_argument("--fault-latency", type=float, default=0.0)
+    ap.add_argument("--preempt-round", type=int, default=-1)
+    ap.add_argument("--fault-seed", type=int, default=None)
+    ap.add_argument("--fault-trace", default=None)
+    ap.add_argument("--min-quorum", type=float, default=0.5)
+    ap.add_argument("--max-retries", type=int, default=2)
+    ap.add_argument("--backoff-factor", type=float, default=2.0)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--dp-clip", type=float, default=0.0)
+    ap.add_argument("--dp-sigma", type=float, default=0.0)
+    ap.add_argument("--epsilon", type=float, default=float("inf"))
+    ap.add_argument("--delta", type=float, default=1e-5)
+    ap.add_argument("--secure-agg", action="store_true")
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    used = [f"--{name.replace('_', '-')}" for name in NOT_PORTED
+            if getattr(args, name) != ap.get_default(name)]
+    if used:
+        raise SystemExit(f"{', '.join(used)}: not ported yet")
+    if not args.model:
+        args.model = "paper-cnn"
+    return args
+
+
+def main(argv=None):
+    return run_ehealth(parse_args(argv))[0]
+
+
+if __name__ == "__main__":
+    main()

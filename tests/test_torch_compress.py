@@ -1,0 +1,262 @@
+"""The port's fused compression against the JAX package's.
+
+The same numpy inputs go through ``repro``'s Pallas kernel (interpret mode)
+and its jitted oracle, and through ``repro_torch``'s plain version, which is
+what a CPU tensor runs. Tolerances:
+
+* the nonzero pattern (which entries survive top-k) is identical;
+* with quantization off the values are identical;
+* with quantization on they agree within 4·2⁻²³·max|x| of their row: XLA
+  contracts the dequantize ``round(t)·scale + qlo`` into one fused
+  multiply-add, while the port rounds the product and the sum separately
+  (as its CUDA kernel does), and the difference lands on the scale of the
+  row's range.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import compression as JC
+from repro.core.compression import compress_rows_ref as jax_compress_rows_ref
+from repro.kernels.compress import compress_pytree as jax_compress_pytree
+from repro.kernels.compress import fused_compress_pallas
+from repro_torch.core import compression as TC
+from repro_torch.core.compression import compress_rows_ref, quantize
+from repro_torch.kernels import build, launch_counts, ops, reset_launch_counts
+from repro_torch.kernels.compress import compress_pytree, compress_rows, fused_compress
+from repro_torch.kernels.topk_sparsify import topk_sparsify_cuda
+
+_oracle = jax.jit(jax_compress_rows_ref, static_argnames=("levels",))
+ULP = 2.0 ** -23
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny shapes: one intra-op thread is as fast, and keeps parallel test
+    workers from oversubscribing the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _normal(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _assert_compress_close(port, want, x, levels):
+    port, want = np.asarray(port, np.float32), np.asarray(want, np.float32)
+    np.testing.assert_array_equal(port != 0, want != 0, err_msg="survivor pattern differs")
+    if not (levels and levels > 1):
+        np.testing.assert_array_equal(port, want)
+        return
+    tol = 4 * ULP * np.nanmax(np.abs(np.asarray(x, np.float32)), axis=-1, keepdims=True)
+    assert (np.abs(port - want) <= tol).all(), np.abs(port - want).max()
+
+
+@pytest.mark.parametrize("rows,n", [(4, 64), (16, 300), (3, 1000), (1, 128)])
+@pytest.mark.parametrize("levels,k_div", [(0, 10), (128, 10), (16, 3), (128, 0)])
+def test_compress_rows_ref_matches_jax(rows, n, levels, k_div):
+    """top-k only (levels=0), fused, and quantize only (k_div=0 -> k=n)."""
+    x = _normal(rows * n + levels, (rows, n))
+    k = n if k_div == 0 else max(1, n // k_div)
+    port = compress_rows_ref(torch.from_numpy(x), k, levels).numpy()
+    for want in (fused_compress_pallas(jnp.asarray(x), k, levels=levels, interpret=True),
+                 _oracle(jnp.asarray(x), k, levels=levels)):
+        _assert_compress_close(port, want, x, levels)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compress_rows_ref_dtypes(dtype):
+    x = _normal(0, (8, 256))
+    xj = jnp.asarray(x).astype(dtype)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    port = compress_rows_ref(xt, 25, levels=128)
+    assert port.dtype == xt.dtype
+    want = _oracle(xj, 25, levels=128)
+    _assert_compress_close(port.float().numpy(), np.asarray(want, np.float32),
+                           np.asarray(xj, np.float32), 128)
+
+
+@pytest.mark.parametrize("levels", [0, 128])
+def test_ragged_rows_match_jax(levels):
+    """Rows padded to a common width + per-row valid length: same as the
+    JAX kernel on the same padded matrix, padding columns zeroed."""
+    widths, rows = [64, 300, 129], 5
+    n_max = max(widths)
+    padded = np.concatenate(
+        [np.pad(_normal(i, (rows, w)), ((0, 0), (0, n_max - w))) for i, w in enumerate(widths)])
+    k = np.repeat([max(1, w // 10) for w in widths], rows).astype(np.int32)
+    row_len = np.repeat(widths, rows).astype(np.int32)
+    port = compress_rows_ref(torch.from_numpy(padded), torch.from_numpy(k), levels,
+                             torch.from_numpy(row_len)).numpy()
+    want = fused_compress_pallas(jnp.asarray(padded), jnp.asarray(k), levels=levels,
+                                 row_len=jnp.asarray(row_len), interpret=True)
+    _assert_compress_close(port, want, padded, levels)
+    for i, w in enumerate(widths):
+        assert not port[i * rows:(i + 1) * rows, w:].any()
+
+
+@pytest.mark.parametrize("levels", [0, 128])
+def test_nan_rows_match_jax(levels):
+    """A NaN in a row: the row max propagates it, the bisection ends at 0,
+    and every non-NaN valid entry survives while the NaN is dropped, as in
+    the JAX kernel and oracle."""
+    x = _normal(21, (6, 96))
+    x[1, 5] = np.nan
+    x[4, [0, 50]] = np.nan
+    row_len = np.array([96, 96, 40, 96, 96, 10], np.int32)
+    x[5, 20] = np.nan  # in the padding: ignored
+    args = (torch.from_numpy(x), 8, levels, torch.from_numpy(row_len))
+    port = compress_rows_ref(*args).numpy()
+    assert np.isfinite(port).all()
+    assert ((port[[1, 4]] != 0).sum(axis=1) == [95, 94]).all()
+    assert (port[5, 10:] == 0).all() and (port[5] != 0).sum() <= 8 + 2
+    for want in (fused_compress_pallas(jnp.asarray(x), 8, levels=levels,
+                                       row_len=jnp.asarray(row_len), interpret=True),
+                 _oracle(jnp.asarray(x), 8, levels=levels, row_len=jnp.asarray(row_len))):
+        _assert_compress_close(port, want, np.where(np.isnan(x), 0, x), levels)
+
+
+def test_compress_pytree_matches_per_leaf_and_jax():
+    tree = {
+        "w": _normal(5, (3, 4, 96)),
+        "b": _normal(6, (3, 17)),
+        "c": _normal(7, (2, 5, 8, 130)),
+    }
+    ttree = {k: torch.from_numpy(v) for k, v in tree.items()}
+    out = compress_pytree(ttree, 0.25, 128)
+    want_jax = jax.jit(lambda t: jax_compress_pytree(t, 0.25, 128))(
+        {k: jnp.asarray(v) for k, v in tree.items()})
+    for name, leaf in tree.items():
+        n = leaf.shape[-1]
+        k = max(1, round(0.25 * n))
+        per_leaf = compress_rows_ref(ttree[name].reshape(-1, n), k, 128).reshape(leaf.shape)
+        assert torch.equal(out[name], per_leaf), name
+        _assert_compress_close(out[name].reshape(-1, n).numpy(),
+                               np.asarray(want_jax[name]).reshape(-1, n),
+                               leaf.reshape(-1, n), 128)
+    assert compress_pytree(ttree, 1.0, 0) is ttree  # no-op settings
+
+
+@pytest.mark.parametrize("rows,n,k", [(8, 256, 16), (5, 300, 7), (1, 128, 1)])
+def test_quantized_rows_stay_sparse(rows, n, k):
+    """Zero-anchor regression: mixed-sign rows keep nnz <= k + ties after
+    quantization, and the forced negative survivor stays negative."""
+    x = _normal(rows + n + k, (rows, n))
+    x[:, 0] = -10.0 - np.arange(rows, dtype=np.float32)
+    out = compress_rows_ref(torch.from_numpy(x), k, 128).numpy()
+    nnz = (out != 0).sum(axis=-1)
+    assert nnz.max() <= k + 8, f"quantization re-densified: nnz={nnz}"
+    assert nnz.min() >= 1
+    assert (out[:, 0] < 0).all()
+
+
+def test_k_at_least_n_is_noop():
+    x = torch.from_numpy(_normal(3, (6, 200)))
+    assert torch.equal(compress_rows_ref(x, 200, 0), x)
+    assert torch.equal(compress_rows_ref(x, 1000, 0), x)
+    assert ops.fused_compress(x, 1.0, 0) is x
+
+
+def test_legacy_quantize_zero_anchored():
+    x = torch.tensor([[-4.0, 0.0, 0.0, 1.0, 3.0], [0.5, 0.0, -0.5, 2.0, 0.0]])
+    q = quantize(x, 128)
+    assert (q[x == 0.0] == 0.0).all()
+    step = (x.amax(-1) - x.amin(-1)) / 127
+    assert (q - x).abs().max() <= step.max() / 2 + 1e-7
+
+
+def test_cpu_tensors_never_reach_the_kernel():
+    """The router sends a CPU tensor to the plain version; the kernel wrapper
+    refuses one outright."""
+    reset_launch_counts()
+    x = torch.from_numpy(_normal(9, (12, 40)))
+    compress_rows(x, 4, 128)
+    compress_pytree({"a": x, "b": x[:, :7]}, 0.25, 128)
+    ops.fused_compress(x, 0.25, 16)
+    ops.topk_sparsify(x, 0.1)
+    assert launch_counts["fused_compress"] == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_compress(x, 4, 128)
+    assert launch_counts["fused_compress"] == 0
+
+
+def test_nvcc_command_targets_hopper_without_fast_math():
+    cmd = build.nvcc_command(build.CSRC / "compress.cu", "/dev/null")
+    line = " ".join(cmd)
+    assert "arch=compute_90a,code=sm_90a" in line
+    assert "--fmad=false" in cmd
+    assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+    assert (build.CSRC / "compress.cu").exists()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [0, 16, 128])
+def test_kernel_matches_plain(levels):
+    """The CUDA kernel against the plain version on the card: bit-identical,
+    ragged rows included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    widths, rows = [128, 11, 64], 300
+    n_max = max(widths)
+    x = torch.from_numpy(np.concatenate(
+        [np.pad(_normal(i, (rows, w)), ((0, 0), (0, n_max - w))) for i, w in enumerate(widths)]))
+    x[::37, 3] = float("nan")  # NaN rows: kept dense but for the NaN, as in plain
+    k = torch.from_numpy(np.repeat([max(1, round(0.25 * w)) for w in widths], rows).astype(np.int32))
+    row_len = torch.from_numpy(np.repeat(widths, rows).astype(np.int32))
+    dev = torch.device("cuda")
+    reset_launch_counts()
+    got = fused_compress(x.to(dev), k.to(dev), levels, row_len.to(dev))
+    want = compress_rows_ref(x.to(dev), k.to(dev), levels, row_len.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert launch_counts["fused_compress"] == 1
+    dense = x[:rows].to(dev).contiguous()
+    assert torch.equal(topk_sparsify_cuda(dense, 32), compress_rows_ref(dense, 32, 0))
+    _assert_compress_close(got.cpu().numpy(), compress_rows_ref(x, k, levels, row_len).numpy(),
+                           x.numpy(), levels)
+
+
+def test_message_entry_points_and_byte_model_match_jax():
+    x = _normal(11, (2, 3, 40))
+    port = TC.compress_message(torch.from_numpy(x), 0.25, 128).numpy()
+    want = JC.compress_message(jnp.asarray(x), 0.25, 128)
+    _assert_compress_close(port.reshape(-1, 40), np.asarray(want).reshape(-1, 40),
+                           x.reshape(-1, 40), 128)
+    np.testing.assert_array_equal(TC.topk_sparsify(torch.from_numpy(x), 0.1).numpy(),
+                                  np.asarray(jax.jit(lambda a: JC.topk_sparsify(a, 0.1))(x)))
+    assert TC.COMPRESSION_LADDER == JC.COMPRESSION_LADDER
+    for n, k, b in [(1000, 0.25, 128), (1000, 0.0, 0), (77, 0.05, 64), (10, 0.5, 1)]:
+        assert TC.compressed_bytes(n, k, b) == JC.compressed_bytes(n, k, b)
+
+
+def test_build_reuses_library_and_reports_failure(tmp_path, monkeypatch):
+    """The build with a stand-in compiler: the library is keyed by a hash of
+    the source, reused while the source is unchanged, and a failed build
+    raises with nvcc's output and leaves no library behind."""
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// a\n")
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    "src=''; o=''\n"
+                    "while [ $# -gt 0 ]; do case $1 in -o) o=$2; shift;; *.cu) src=$1;; esac; shift; done\n"
+                    "grep -q FAIL $src && { echo broken $src; exit 3; }\n"
+                    "echo built $src; cp $src $o\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", out)
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+
+    assert build.build("a") > 0
+    assert build.library_path("a").read_text() == "// a\n"
+    assert "built" in build.build_log("a")
+    assert build.build("a") == 0.0  # unchanged source: reused
+    (csrc / "a.cu").write_text("// FAIL\n")
+    with pytest.raises(RuntimeError, match="broken"):
+        build.build("a")
+    assert not build.library_path("a").exists()
+    assert not list(out.glob("*.tmp.so"))

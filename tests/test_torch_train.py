@@ -1,0 +1,131 @@
+"""The port's training entry point, device rule and package boundary."""
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.launch import train as T
+from repro_torch.launch.profile_train import busy_us, device_intervals, port_kernel_times
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+TINY = ["--groups", "2", "--devices", "16", "--samples", "128", "--rounds", "2"]
+# The JSON keys ``repro.launch.train.run_ehealth`` prints on its fixed-interval
+# path: ``evaluate_global``'s metrics, then the three run keys.
+REFERENCE_KEYS = {"loss", "accuracy", "precision", "recall", "f1", "auc_roc",
+                  "train_loss_final", "steps", "wall_s"}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Tiny shapes: one intra-op thread is as fast, and keeps parallel test
+    workers from oversubscribing the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _run(argv, capsys):
+    metrics, losses = T.run_ehealth(T.parse_args(argv))
+    printed = json.loads(capsys.readouterr().out)
+    assert printed == metrics
+    return metrics, losses
+
+
+@pytest.mark.parametrize("algorithm", ["hsgd", "c-hsgd"])
+def test_run_ehealth_emits_reference_keys(algorithm, capsys):
+    m, losses = _run(["--device", "cpu", "--algorithm", algorithm] + TINY, capsys)
+    assert set(m) == REFERENCE_KEYS
+    assert m["steps"] == len(losses) == 2 * 4
+    assert all(map(lambda v: v == v, losses))  # finite, no NaN
+    assert 0.0 <= m["accuracy"] <= 1.0 and 0.0 <= m["auc_roc"] <= 1.0
+
+
+@pytest.mark.parametrize("algorithm", ["jfl", "tdcd", "c-tdcd", "centralized"])
+def test_baselines_run_on_cpu(algorithm, capsys):
+    m, losses = _run(["--device", "cpu", "--algorithm", algorithm] + TINY, capsys)
+    assert set(m) == REFERENCE_KEYS
+    assert m["steps"] == len(losses) > 0
+    assert torch.isfinite(torch.as_tensor(losses)).all()
+
+
+def test_lstm_model_runs(capsys):
+    m, _ = _run(["--device", "cpu", "--model", "paper-lstm", "--dataset", "mimic3",
+                 "--algorithm", "c-hsgd", "--groups", "2", "--devices", "8",
+                 "--samples", "64", "--rounds", "1"], capsys)
+    assert m["steps"] == 4
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert T.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.run_ehealth(T.parse_args(TINY))
+
+
+@pytest.mark.parametrize("flag", [["--adaptive"], ["--population", "sync"], ["--arch", "gemma3-1b"],
+                                  ["--dp-clip", "1.0"], ["--secure-agg"], ["--fault-nan", "0.1"],
+                                  ["--checkpoint", "ckpt"]])
+def test_unported_flags_refuse(flag):
+    with pytest.raises(SystemExit, match="not ported yet"):
+        T.parse_args(["--device", "cpu"] + flag)
+
+
+def test_package_imports_no_jax():
+    """Import repro_torch and every submodule in a fresh interpreter: jax
+    and the JAX package stay out of sys.modules."""
+    mods = sorted(".".join(p.relative_to(SRC).with_suffix("").parts)
+                  for p in (SRC / "repro_torch").rglob("*.py"))
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.'))\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(mods) >= 20
+
+
+def test_no_source_names_jax_or_the_reference():
+    pattern = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro\.|import repro$|from repro import)",
+                         re.M)
+    files = list((SRC / "repro_torch").rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    for path in files:
+        assert not pattern.search(path.read_text()), path
+
+
+def test_profile_trace_parsing(tmp_path):
+    """Device busy time is the union of kernel/copy/memset intervals; host
+    ops in the trace are not device time."""
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 0.0, "dur": 10.0},
+        {"ph": "X", "cat": "kernel", "name": "b", "ts": 5.0, "dur": 10.0},  # overlaps a
+        {"ph": "X", "cat": "gpu_memcpy", "name": "c", "ts": 30.0, "dur": 2.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0.0, "dur": 100.0},
+        {"ph": "i", "cat": "kernel", "name": "marker", "ts": 50.0},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    intervals = device_intervals(str(path))
+    assert [i[1] for i in intervals] == ["a", "b", "c"]
+    assert busy_us(intervals) == 17.0
+
+
+def test_profile_port_kernel_times():
+    """The port's kernels are counted by their __global__ name, launches and
+    device time; a copy of a similar name is not a launch."""
+    intervals = [
+        ("kernel", "(anonymous namespace)::compress_rows_kernel(float const*, int)", 0.0, 7.5),
+        ("kernel", "void at::native::reduce_kernel<128, 4>", 10.0, 3.0),
+        ("kernel", "(anonymous namespace)::compress_rows_kernel(float const*, int)", 20.0, 8.0),
+        ("gpu_memcpy", "compress_rows_kernel staging", 30.0, 1.0),
+    ]
+    assert port_kernel_times(intervals) == {"compress_rows_kernel": {"launches": 2, "us": 15.5}}
+    assert port_kernel_times([]) == {"compress_rows_kernel": {"launches": 0, "us": 0}}
