@@ -6,24 +6,41 @@
 Phases, in order; any failure raises and the script exits nonzero:
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
      the nvcc build of every kernel source in src/repro_torch/csrc/;
-  2. each kernel against its plain PyTorch version on the card, at the main
-     path's shape (also with NaN rows) and at a large ragged shape:
-     bit-identical (torch.equal),
-     with device times (CUDA graph replays timed by CUDA events) beside the
-     least time the card could take;
+  2. the compress kernel against its plain PyTorch version on the card, at
+     the main path's shape (also with NaN rows) and at a large ragged shape:
+     bit-identical (torch.equal), with device times (CUDA graph replays
+     timed by CUDA events) beside the least time the card could take;
+  2b. the same for the DP compress kernel (clip C, noise multiplier σ):
+     the main message with noise from a CUDA generator (C=1, σ=1), the
+     large ragged shape (σ=0.5), NaN rows, and σ=0 with C=1e30 against the
+     non-DP kernel; its time over the non-DP kernel's at the same shape;
   3. the main path: ``repro_torch.launch.train.run_ehealth`` — paper-cnn,
      organamnist, c-hsgd (k=0.25, b=128), M=10, K=64, α=0.25, 2048 samples,
      P=4, Q=2, 10 rounds — with the launch counters zeroed just before and
      read just after;
+  3b. the fixed private path: the main path with --dp-clip 1 --dp-sigma 1
+     --secure-agg: 20 DP launches and no other, one round executor, the
+     composed ε of 20 releases;
+  3c. the §VI adaptive path: the main path with --adaptive --dp-clip 1
+     --dp-sigma 1 --epsilon 25 (T = 40 steps, pre-training probe on): one
+     DP launch a round, ε within 25, one executor per (P, Q, k, b) bucket;
+     and --adaptive without DP, whose loss must fall;
   4. the card against the CPU: 2 c-hsgd rounds from the same initial model
      and the same participant draws, per-step losses within rtol 1e-3;
+  4b. the same for 2 rounds of the fixed private path (same participants,
+     noise rows and masks) and for a short adaptive run (T = 8, no probe:
+     the same P, Q and rungs); and on the card the masked ring aggregate
+     equals the unmasked one bit for bit;
   5. a {"kernels": [...]} summary line, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -39,6 +56,13 @@ from repro_torch.common.pytree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core import federation as F  # noqa: E402
 from repro_torch.core.baselines import make_runner  # noqa: E402
 from repro_torch.core.compression import compress_rows_ref  # noqa: E402
+from repro_torch.core.controller import (  # noqa: E402
+    AdaptiveConfig,
+    AdaptiveHSGDRunner,
+    epsilon_of,
+    gaussian_rho,
+    ladder_from,
+)
 from repro_torch.core.hsgd import exchange, init_state  # noqa: E402
 from repro_torch.kernels import build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.compress import fused_compress, stack_rows  # noqa: E402
@@ -55,8 +79,11 @@ CARD_RATES = (
 MAIN_ARGV = ["--model", "paper-cnn", "--dataset", "organamnist", "--algorithm", "c-hsgd",
              "--groups", "10", "--devices", "64", "--alpha", "0.25", "--samples", "2048",
              "--p", "4", "--q", "2"]
+PRIVATE_ARGV = ["--dp-clip", "1", "--dp-sigma", "1", "--secure-agg"]
+ADAPTIVE_ARGV = ["--adaptive", "--dp-clip", "1", "--dp-sigma", "1", "--epsilon", "25"]
 MAIN_ROUNDS = 10
 PARITY_ROUNDS = 2
+ADAPTIVE_PARITY_STEPS = 8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -98,56 +125,71 @@ def device_ms(fn, inner: int = 20, reps: int = 21) -> float:
     return statistics.median(times)
 
 
-def compress_bound_ms(mat, row_len, levels: int, bw: float, flops: float):
+def compress_bound_ms(mat, row_len, levels: int, bw: float, flops: float, dp: bool = False):
     """Least time for one fused compress: bytes (each row's valid prefix read
-    once, the whole matrix written once with its padding as 0, k and row_len
-    read once) over the memory rate, against operations (per valid element:
-    1 max + 16 bisection compares + 1 keep compare, and with quantization 2
-    extrema + sub, div, round, mul, add) over the fp32 rate. Returns
-    (bound_ms, bound_by)."""
+    once, and with DP as much again of noise; the whole matrix written once
+    with its padding as 0; k and row_len read once) over the memory rate,
+    against operations (per valid element: 1 max + 16 bisection compares +
+    1 keep compare; with quantization 2 extrema + sub, div, round, mul, add;
+    with DP the square and sum of the norm and the scale, noise product and
+    add) over the fp32 rate. Returns (bound_ms, bound_by)."""
     rows, n = mat.shape
     valid = int(row_len.sum())
-    nbytes = valid * 4 + rows * n * 4 + 2 * rows * 4
-    ops = valid * (18 + (7 if levels > 1 else 0))
+    nbytes = valid * 4 * (2 if dp else 1) + rows * n * 4 + 2 * rows * 4
+    ops = valid * (18 + (7 if levels > 1 else 0) + (5 if dp else 0))
     t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_compress(name, mat, k_rows, len_rows, levels, bw, flops):
-    """Kernel vs plain version on one input: bit-identical, then timed."""
-    got = fused_compress(mat, k_rows, levels, len_rows)
-    want = compress_rows_ref(mat, k_rows, levels, len_rows)
+def compare_compress(name, mat, k_rows, len_rows, levels, bw, flops, dp=None):
+    """Kernel vs plain version on one input: bit-identical, then timed.
+    ``dp`` = (clip, sigma, noise), all on the card, selects the DP kernel;
+    its time is then also set against the non-DP kernel's on the input."""
+    dp_args = () if dp is None else dp
+    got = fused_compress(mat, k_rows, levels, len_rows, *dp_args)
+    want = compress_rows_ref(mat, k_rows, levels, len_rows, *dp_args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     check(torch.equal(got, want), f"{name}: kernel differs from plain (max |diff| {err})")
     nnz = int((got != 0).sum())
-    ms = device_ms(lambda: fused_compress(mat, k_rows, levels, len_rows))
-    plain_ms = device_ms(lambda: compress_rows_ref(mat, k_rows, levels, len_rows))
-    bound, bound_by = compress_bound_ms(mat, len_rows, levels, bw, flops)
+    ms = device_ms(lambda: fused_compress(mat, k_rows, levels, len_rows, *dp_args))
+    plain_ms = device_ms(lambda: compress_rows_ref(mat, k_rows, levels, len_rows, *dp_args))
+    bound, bound_by = compress_bound_ms(mat, len_rows, levels, bw, flops, dp is not None)
+    extra = ""
+    if dp is not None:
+        row1_ms = device_ms(lambda: fused_compress(mat, k_rows, levels, len_rows))
+        extra = f" non_dp_kernel_ms={row1_ms} dp_over_non_dp={ms / row1_ms}"
     print(f"[kernel] {name}: shape={tuple(mat.shape)} levels={levels} nnz={nnz} "
           f"bit-identical max_abs_err={err} kernel_ms={ms} plain_ms={plain_ms} "
-          f"bound_us={bound * 1e3} ({bound_by}) library_ms=null (no single PyTorch "
-          f"call computes this function)")
+          f"bound_us={bound * 1e3} ({bound_by}){extra} library_ms=null (no single "
+          f"PyTorch call computes this function)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by}
 
 
-def check_nan_rows(mat, k_rows, len_rows, levels):
+def check_nan_rows(mat, k_rows, len_rows, levels, dp=None):
     """A NaN in a row's valid prefix: the kernel keeps that row's non-NaN
     entries and drops the NaN, bit for bit as the plain version does (the
-    row max propagates NaN, so the bisection ends at 0)."""
+    row max propagates NaN, so the bisection ends at 0). With DP the NaN
+    makes the row's norm NaN, and the whole row comes out as zeros."""
+    dp_args = () if dp is None else dp
     bad = mat.clone()
     rows = torch.arange(0, bad.shape[0], 97, device=bad.device)
     bad[rows, 0] = float("nan")
     for lv in sorted({0, levels}):
-        got = fused_compress(bad, k_rows, lv, len_rows)
-        want = compress_rows_ref(bad, k_rows, lv, len_rows)
+        got = fused_compress(bad, k_rows, lv, len_rows, *dp_args)
+        want = compress_rows_ref(bad, k_rows, lv, len_rows, *dp_args)
         torch.cuda.synchronize()
-        check(torch.equal(got, want), f"NaN rows, levels={lv}: kernel differs from plain")
-        check(bool(torch.isfinite(got).all()), f"NaN rows, levels={lv}: NaN in the output")
-        dense = int((got[rows] != 0).sum(dim=1).min())
-        print(f"[kernel] NaN rows: {rows.numel()} rows, levels={lv}: bit-identical, "
-              f"fewest nonzeros in a NaN row {dense}")
+        tag = f"NaN rows{' (DP)' if dp else ''}, levels={lv}"
+        check(torch.equal(got, want), f"{tag}: kernel differs from plain")
+        check(bool(torch.isfinite(got).all()), f"{tag}: NaN in the output")
+        kept = (got[rows] != 0).sum(dim=1)
+        if dp:
+            check(int(kept.max()) == 0, f"{tag}: a NaN row kept {int(kept.max())} entries")
+        else:
+            check(int(kept.min()) > 0, f"{tag}: a NaN row kept no entry")
+        print(f"[kernel] {tag}: {rows.numel()} rows: bit-identical, nonzeros in a NaN "
+              f"row {int(kept.min())}..{int(kept.max())}")
 
 
 def main_message(device):
@@ -174,6 +216,132 @@ def large_ragged(device, k_frac: float, seed: int = 0):
     mat = torch.randn((rows, 1024), generator=g, device=device)
     mat = torch.where(torch.arange(1024, device=device) < len_rows.to(device)[:, None], mat, 0.0)
     return mat.contiguous(), k_rows.to(device), len_rows.to(device)
+
+
+def dp_operands(mat, clip: float, sigma: float, seed: int = 1):
+    """(clip, σ, noise) on the card: one-element tensors and standard
+    normals from a CUDA generator, as the private path draws them."""
+    g = torch.Generator(device=mat.device).manual_seed(seed)
+    noise = torch.randn(mat.shape, generator=g, device=mat.device)
+    as_t = lambda v: torch.tensor(v, dtype=torch.float32, device=mat.device)
+    return as_t(clip), as_t(sigma), noise
+
+
+def check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops):
+    """Phase 2b: the DP kernel against its plain version; returns the main
+    message's comparison and the largest difference seen."""
+    main_dp = compare_compress("DP main-path message C=1 sigma=1", mat, k_rows, len_rows,
+                               levels, bw, flops, dp_operands(mat, 1.0, 1.0))
+    max_err = main_dp["max_abs_err"]
+    check_nan_rows(mat, k_rows, len_rows, levels, dp_operands(mat, 1.0, 1.0))
+    for k_frac in (0.1, 0.25):
+        big = large_ragged(device=mat.device, k_frac=k_frac)
+        for lv in (0, 128):
+            res = compare_compress(f"DP large ragged k={k_frac} C=1 sigma=0.5", *big, lv, bw,
+                                   flops, dp_operands(big[0], 1.0, 0.5))
+            max_err = max(max_err, res["max_abs_err"])
+    for name, (m, k, ln) in (("main-path message", (mat, k_rows, len_rows)),
+                             ("large ragged k=0.25", large_ragged(mat.device, 0.25))):
+        for lv in sorted({0, levels}):
+            same = fused_compress(m, k, lv, ln, *dp_operands(m, 1e30, 0.0))
+            check(torch.equal(same, fused_compress(m, k, lv, ln)),
+                  f"{name} levels={lv}: DP kernel at sigma=0, C=1e30 differs from the non-DP kernel")
+            print(f"[kernel] DP {name} levels={lv}: sigma=0, C=1e30 identical to the "
+                  f"non-DP kernel")
+    return main_dp, max_err
+
+
+def run_cli(argv):
+    """``run_ehealth`` on ``argv``, its stdout echoed: (metrics, losses, the
+    (P, rung) of each ``[adaptive] round`` line)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        metrics, losses = run_ehealth(parse_args(argv))
+    out = buf.getvalue()
+    print(out, end="")
+    rounds = [(int(p), int(r)) for p, r in
+              re.findall(r"^\[adaptive\] round +\d+: P=Q= *(\d+) .* rung=(\d+) ", out, re.M)]
+    return metrics, losses, rounds
+
+
+def same_start_private_losses(*devices):
+    """Per-step losses of PARITY_ROUNDS rounds of the fixed private path
+    (C=1, σ=1, secure aggregation) on each device, from one initial model,
+    one set of participants and one set of noise rows (drawn on the CPU)."""
+    args = parse_args(MAIN_ARGV + PRIVATE_ARGV)
+    gen = torch.Generator().manual_seed(args.seed)
+    init = parts = noise = None
+    out = []
+    for dev in devices:
+        model, fed, train, data, w, _ = setup_ehealth(args, dev)
+        runner, eff_fed = make_runner(args.algorithm, model, fed, train)
+        n = PARITY_ROUNDS * eff_fed.lam
+        if init is None:
+            init = model.init(gen)
+            parts = torch.stack([F.sample_participants(gen, eff_fed) for _ in range(n)])
+        state = init_state(torch.Generator(), model, eff_fed, data,
+                           params=tree_map(lambda t: t.to(dev), init))
+        if noise is None:
+            leaves = tree_leaves({"theta0": state.stale["theta0"], "z1": state.stale["z1"],
+                                  "z2": state.stale["z2"]})
+            shape = tuple(stack_rows(leaves, runner.train.compression_k)[0].shape)
+            noise = [torch.randn(shape, generator=gen) for _ in range(n)]
+        _, losses = runner.run_private(state, data, w, PARITY_ROUNDS, seed=args.seed,
+                                       dp_clip=args.dp_clip, dp_sigma=args.dp_sigma,
+                                       secure_agg=True, participants=parts, dp_noise=noise)
+        out.append(losses.cpu())
+    return out
+
+
+def same_start_adaptive(*devices):
+    """A short adaptive run (T = 8, no pre-training probe) on each device
+    from one initial model and one set of participants: (losses, the
+    (P, Q, rung) of each round) per device."""
+    args = parse_args(MAIN_ARGV)
+    gen = torch.Generator().manual_seed(args.seed)
+    init = parts = None
+    out = []
+    for dev in devices:
+        model, fed, train, data, w, _ = setup_ehealth(args, dev)
+        runner, eff_fed = make_runner(args.algorithm, model, fed, train)
+        if init is None:
+            init = model.init(gen)
+            parts = torch.stack([F.sample_participants(gen, eff_fed)
+                                 for _ in range(ADAPTIVE_PARITY_STEPS)])
+        state = init_state(torch.Generator(), model, eff_fed, data,
+                           params=tree_map(lambda t: t.to(dev), init))
+        cfg = AdaptiveConfig(total_steps=ADAPTIVE_PARITY_STEPS, init_probe=False,
+                             max_interval=args.max_interval, eta_max=max(args.lr * 10, 0.05),
+                             ladder=ladder_from(runner.train.compression_k,
+                                                runner.train.quantization_bits))
+        res = AdaptiveHSGDRunner(model, fed, runner.train, cfg).run(
+            state, data, w, participants=parts)
+        out.append((torch.from_numpy(res.losses), [(h["P"], h["Q"], h["rung"])
+                                                   for h in res.history]))
+    return out
+
+
+def check_ring_on_card(device):
+    """The masked ring aggregate of a real θ2 equals the unmasked one bit
+    for bit on the card."""
+    args = parse_args(MAIN_ARGV)
+    model, fed, train, data, _, _ = setup_ehealth(args, device)
+    state = init_state(torch.Generator().manual_seed(args.seed), model, fed, data)
+    g = torch.Generator(device=device).manual_seed(2)
+    theta2 = tree_map(lambda t: t + 0.01 * torch.randn(t.shape, generator=g, device=device),
+                      state.theta2)
+    masks = F.secure_agg_masks(theta2, args.seed, 0)
+    got = F.secure_local_aggregate(F.secure_mask_uplink(theta2, masks), theta2)
+    bare = F.secure_local_aggregate(
+        F.secure_mask_uplink(theta2, tree_map(torch.zeros_like, masks)), theta2)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(bare))),
+          "masked ring aggregate differs from the unmasked one on the card")
+    plain = F.local_aggregate(theta2)
+    dev_ = max(float((a - p).abs().max()) for a, p in zip(tree_leaves(got), tree_leaves(plain)))
+    check(dev_ <= 2.0 ** -15, f"ring aggregate off the float mean by {dev_}")
+    print(f"[ring] masked == unmasked ring aggregate bit for bit on the card; "
+          f"max |ring - float mean| {dev_}")
 
 
 def same_start_losses(*devices):
@@ -231,6 +399,9 @@ def main() -> int:
             res = compare_compress(f"large ragged k={k_frac}", *big, lv, bw, flops)
             max_err = max(max_err, res["max_abs_err"])
 
+    # -- phase 2b: the DP kernel against plain, bit for bit ------------------
+    main_dp, max_err_dp = check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops)
+
     # -- phase 3: the main path -------------------------------------------
     args = parse_args(MAIN_ARGV + ["--device", "cuda", "--rounds", str(MAIN_ROUNDS)])
     reset_launch_counts()
@@ -247,6 +418,50 @@ def main() -> int:
     first, last = float(losses[:4].mean()), float(losses[-4:].mean())
     check(last < first, f"loss did not fall: first-4 mean {first}, last-4 mean {last}")
     check(metrics["steps"] == MAIN_ROUNDS * args.p, "step count")
+    check(not counts.get("fused_compress_dp"), "the non-private path launched the DP kernel")
+
+    # -- phase 3b: the fixed private path ------------------------------------
+    argv = MAIN_ARGV + PRIVATE_ARGV + ["--device", "cuda", "--rounds", str(MAIN_ROUNDS)]
+    reset_launch_counts()
+    metrics, losses, _ = run_cli(argv)
+    torch.cuda.synchronize()
+    counts_dp = dict(launch_counts)
+    print(f"[private] launches={counts_dp} steps/s={metrics['steps'] / metrics['wall_s']}")
+    check(counts_dp.get("fused_compress_dp", 0) == MAIN_ROUNDS * lam and
+          not counts_dp.get("fused_compress"),
+          f"private path launches {counts_dp}, expected {MAIN_ROUNDS * lam} DP and no other")
+    check(metrics["executors_compiled"] == 1, f"executors {metrics['executors_compiled']}")
+    eps = epsilon_of(MAIN_ROUNDS * lam * gaussian_rho(1.0), 1e-5)
+    check(abs(metrics["epsilon"] - eps) <= 1e-12 * eps, f"epsilon {metrics['epsilon']} != {eps}")
+    check(all(math.isfinite(float(v)) for v in losses), "non-finite loss on the private path")
+    check(metrics["steps"] == MAIN_ROUNDS * args.p, "private step count")
+
+    # -- phase 3c: the adaptive path, with DP and without --------------------
+    argv = MAIN_ARGV + ADAPTIVE_ARGV + ["--device", "cuda", "--rounds", str(MAIN_ROUNDS)]
+    reset_launch_counts()
+    metrics, losses, rounds = run_cli(argv)
+    torch.cuda.synchronize()
+    counts_ad = dict(launch_counts)
+    print(f"[adaptive-dp] launches={counts_ad} rounds={rounds} "
+          f"steps/s={metrics['steps'] / metrics['wall_s']}")
+    check(len(rounds) == metrics["adaptive_rounds"] > 0, "adaptive round lines")
+    check(counts_ad.get("fused_compress_dp", 0) == metrics["adaptive_rounds"]
+          and not counts_ad.get("fused_compress"),
+          f"adaptive DP launches {counts_ad}, expected one a round ({metrics['adaptive_rounds']})")
+    check(metrics["epsilon"] <= 25.0, f"adaptive epsilon {metrics['epsilon']} over 25")
+    check(metrics["executors_compiled"] == len(set(rounds)),
+          f"executors {metrics['executors_compiled']} for buckets {sorted(set(rounds))}")
+    check(all(math.isfinite(float(v)) for v in losses), "non-finite loss on the adaptive path")
+    argv = MAIN_ARGV + ["--adaptive", "--device", "cuda", "--rounds", str(MAIN_ROUNDS)]
+    reset_launch_counts()
+    metrics, losses, rounds = run_cli(argv)
+    torch.cuda.synchronize()
+    print(f"[adaptive] launches={dict(launch_counts)} rounds={rounds}")
+    check(launch_counts.get("fused_compress", 0) == metrics["adaptive_rounds"],
+          "adaptive path: one compress launch a round")
+    first, last = float(losses[:4].mean()), float(losses[-4:].mean())
+    check(all(math.isfinite(float(v)) for v in losses) and last < first,
+          f"adaptive loss did not fall: first-4 mean {first}, last-4 mean {last}")
 
     # -- phase 4: the card against the CPU ---------------------------------
     on_cpu, on_card = same_start_losses(torch.device("cpu"), device)
@@ -254,6 +469,21 @@ def main() -> int:
     print(f"[parity] cpu={on_cpu.tolist()} cuda={on_card.tolist()} max_rel_diff={rel}")
     check(torch.allclose(on_card, on_cpu, rtol=1e-3, atol=0.0),
           f"card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
+
+    # -- phase 4b: the card against the CPU on the new paths ---------------
+    on_cpu, on_card = same_start_private_losses(torch.device("cpu"), device)
+    rel = float(((on_card - on_cpu).abs() / on_cpu.abs()).max())
+    print(f"[parity-private] cpu={on_cpu.tolist()} cuda={on_card.tolist()} max_rel_diff={rel}")
+    check(torch.allclose(on_card, on_cpu, rtol=1e-3, atol=0.0),
+          f"private path: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
+    (l_cpu, plan_cpu), (l_card, plan_card) = same_start_adaptive(torch.device("cpu"), device)
+    print(f"[parity-adaptive] plans cpu={plan_cpu} cuda={plan_card} "
+          f"cpu={l_cpu.tolist()} cuda={l_card.tolist()}")
+    check(plan_card == plan_cpu, "adaptive path: card and CPU picked other (P, Q, rung)")
+    rel = float(((l_card - l_cpu).abs() / l_cpu.abs()).max())
+    check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
+          f"adaptive path: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
+    check_ring_on_card(device)
 
     # -- phase 5: summary ----------------------------------------------------
     kernels = [{
@@ -267,6 +497,18 @@ def main() -> int:
         "plain_ms": main_cmp["plain_ms"],
         "bound_ms": main_cmp["bound_ms"],
         "bound_by": main_cmp["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_compress_dp",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/compress.cu",
+        "replaces": "src/repro/kernels/compress.py:103",
+        "launches": counts_dp["fused_compress_dp"],
+        "max_abs_err": max_err_dp,
+        "ms": main_dp["ms"],
+        "plain_ms": main_dp["plain_ms"],
+        "bound_ms": main_dp["bound_ms"],
+        "bound_by": main_dp["bound_by"],
         "library_ms": None,
     }]
     print(smi)

@@ -40,6 +40,20 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_sub(a, b):
+    return tree_map(torch.subtract, a, b)
+
+
+def tree_size(tree) -> int:
+    """Total number of scalar elements of a tree of tensors."""
+    return sum(int(x.numel()) for x in tree_leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of a tree of tensors (meta tensors count by shape)."""
+    return sum(int(x.numel()) * x.element_size() for x in tree_leaves(tree))
+
+
 def tree_dot(a, b):
     """Inner product of two trees, summed in fp32."""
     return sum(torch.sum(x.float() * y.float())

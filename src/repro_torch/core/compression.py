@@ -14,7 +14,14 @@ sequence, so on the card the two agree bit for bit.
 
 Top-k is a fixed 16-step bisection on the magnitude threshold against the
 row max (``count >= k`` keeps ≥ k survivors: the exact top-k support, plus
-ties). The DP stage of the reference comes with the privacy slice.
+ties).
+
+The optional DP stage (``dp_noise`` given) clips each row to L2 norm
+``dp_clip`` and adds ``dp_sigma * dp_clip * dp_noise`` before the top-k, as
+``repro/core/compression.py::compress_rows_ref`` does. The row's ‖x‖² is
+summed in one fixed order, ``warp_order_sqnorm``, that the CUDA kernel
+reproduces with one warp per row; any other order (``torch.sum`` on CUDA
+adds in its own) would break bit-identity with the kernel.
 """
 from __future__ import annotations
 
@@ -24,6 +31,44 @@ from typing import Optional, Union
 import torch
 
 N_REFINE = 16  # threshold tight to max|x| / 2^16
+WARP = 32  # lanes of the warp that owns one row in the CUDA kernel
+
+
+def warp_order_sqnorm(sq: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``sq`` [rows, n] (invalid columns already 0) -> [rows, 1],
+    added in the CUDA kernel's order.
+
+    Lane ``l`` of the kernel's warp adds columns l, l+32, l+64, ... in
+    increasing order; the 32 lane sums are then combined by an xor
+    butterfly with offsets 16, 8, 4, 2, 1. Here: pad to a multiple of 32
+    columns, add the ``n/32`` slices of 32 in order, then halve (first half
+    plus second half) down to one column. Every add is a rounded fp32 add,
+    in the same sequence, so CPU, CUDA eager and the kernel agree bit for bit.
+    """
+    rows, n = sq.shape
+    pad = (-n) % WARP
+    if pad:
+        sq = torch.nn.functional.pad(sq, (0, pad))
+    sq = sq.reshape(rows, -1, WARP)
+    s = sq[:, 0]
+    for j in range(1, sq.shape[1]):
+        s = s + sq[:, j]
+    width = WARP // 2
+    while width:
+        s = s[:, :width] + s[:, width:2 * width]
+        width //= 2
+    return s
+
+
+def dp_scalar(name: str, v, device) -> torch.Tensor:
+    """A DP scalar (clip or σ: a float or a one-element tensor) as a [1, 1]
+    fp32 tensor on ``device``; one already there is used without a copy."""
+    if v is None:
+        raise ValueError(f"the DP stage needs {name} with dp_noise")
+    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if t.numel() != 1:
+        raise ValueError(f"{name} must hold one value, got {t.numel()}")
+    return t.reshape(1, 1)
 
 
 def compress_rows_ref(
@@ -31,6 +76,9 @@ def compress_rows_ref(
     k: Union[int, torch.Tensor],
     levels: int = 0,
     row_len: Optional[torch.Tensor] = None,
+    dp_clip=None,
+    dp_sigma=None,
+    dp_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused top-k sparsify + b-level quantize over the last axis of ``x``.
 
@@ -38,6 +86,12 @@ def compress_rows_ref(
     a per-row no-op). levels <= 1 disables quantization. row_len: optional
     [rows]/[rows,1] valid length for ragged rows — entries at column >=
     row_len are excluded from thresholds/extrema and zeroed in the output.
+
+    DP stage (``dp_noise`` [rows, n] standard normals given): each row is
+    scaled by ``min(1, C / max(‖x‖₂, 1e-12))`` and ``(σ·C)·noise`` is added
+    before the top-k, with C = ``dp_clip`` and σ = ``dp_sigma`` (floats or
+    one-element tensors). With σ = 0 and a large finite C the output equals
+    the non-DP output bit for bit.
     """
     if not isinstance(k, int):
         k = torch.as_tensor(k, device=x.device).to(torch.int32).reshape(-1, 1)
@@ -48,6 +102,16 @@ def compress_rows_ref(
         row_len = torch.as_tensor(row_len, device=x.device).to(torch.int32).reshape(-1, 1)
         valid = torch.arange(x.shape[1], dtype=torch.int32, device=x.device) < row_len
     zero = xf.new_zeros(())
+    if dp_noise is not None:
+        # C and σ as tensors: CUDA divides by a host scalar through its
+        # reciprocal, and the kernel divides in IEEE
+        clip = dp_scalar("dp_clip", dp_clip, x.device)
+        sigma = dp_scalar("dp_sigma", dp_sigma, x.device)
+        nrm2 = warp_order_sqnorm(torch.where(valid, xf * xf, zero))
+        # clamp_min / minimum keep NaN, as jnp.maximum / jnp.minimum do
+        coef = torch.minimum(torch.ones_like(nrm2),
+                             clip / torch.clamp_min(torch.sqrt(nrm2), 1e-12))
+        xf = xf * coef + (sigma * clip) * dp_noise.float()
     mag = torch.where(valid, xf.abs(), zero)
     hi = mag.amax(dim=-1, keepdim=True)
     lo = torch.zeros_like(hi)
@@ -118,6 +182,11 @@ COMPRESSION_LADDER = (
     (0.1, 128),
     (0.05, 64),
 )
+
+# σ multipliers the privacy governor walks UP (never down within a run) when
+# the projected ε would bust the (ε, δ) budget. σ reaches the kernel as a
+# device tensor, so a new rung never changes the launch.
+DP_SIGMA_LADDER = (1.0, 2.0, 4.0, 8.0)
 
 
 def compressed_bytes(n_elements: int, k_frac: float, levels: int, dense_bytes_per_el: int = 4) -> float:

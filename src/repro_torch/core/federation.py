@@ -2,18 +2,20 @@
 
 Eq. (1) (local aggregation over the sampled device subset A_m), eq. (2)
 (global weighted aggregation over groups) and the A_m / mini-batch
-agreement of Algorithm 1 line 13. The plain path of
-``repro/core/federation.py``; secure and robust aggregation come with later
-slices.
+agreement of Algorithm 1 line 13, and the secure-aggregation ring of
+``repro/core/federation.py``: pairwise int32 masks drawn with numpy, bit for
+bit the reference's, and eq. (1) over masked fixed-point uplinks. Robust
+aggregation comes with the fault slice.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.common.config import FederationConfig
-from repro_torch.common.pytree import tree_map
+from repro_torch.common.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
 def local_aggregate(theta2_active, mask: Optional[torch.Tensor] = None):
@@ -38,6 +40,112 @@ def local_aggregate(theta2_active, mask: Optional[torch.Tensor] = None):
         return torch.where(keep, masked, plain)
 
     return tree_map(agg, theta2_active)
+
+
+# ---------------------------------------------------------------------------
+# Secure aggregation (pairwise-mask simulation, Bonawitz-style)
+# ---------------------------------------------------------------------------
+
+# Reserved RNG stream index for pairwise masks: default_rng([seed, 4, r, m, i, j]).
+# Streams 0 (registry), 1 (cohort), 2 (typical tails), 3 (faults) are taken.
+SECURE_AGG_STREAM = 4
+# Fixed-point fractional bits of the ℤ_{2^32} ring encoding. Exact-sum
+# requirement: |Σ_i x_i| · 2^FRAC_BITS < 2^31 per coordinate. The encoding
+# itself needs every uplink entry within ±2^15. Out of range, a float -> int32
+# cast differs between XLA (saturates), torch on the CPU (INT_MIN) and CUDA;
+# ``_ring_encode`` saturates explicitly so the port's CPU and card agree, but
+# no result may depend on it: beyond ±2^15 the aggregate is not the mean.
+SECURE_AGG_FRAC_BITS = 16
+_RING = 1 << 32
+
+
+def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor reduced mod 2^32 and read as two's-complement int32."""
+    v = v & (_RING - 1)
+    return torch.where(v >= _RING // 2, v - _RING, v).to(torch.int32)
+
+
+def secure_agg_masks(template, seed: int, round_idx: int, alive=None):
+    """Pairwise antisymmetric int32 uplink masks for one round (host-side).
+
+    ``template`` is the [M, A, ...] uplink tree (θ2); the result has the
+    same structure in int32, on the template's device. For each group m and
+    alive pair i < j, a mask ``p`` is drawn from
+    ``np.random.default_rng([seed, 4, round_idx, m, i, j])``; slot i carries
+    +p and slot j carries -p, so the ring sum over the alive slots cancels
+    exactly. ``alive`` [M, A] marks the surviving slots; dead slots get (and
+    owe) no masks. Bit-identical to the reference's masks.
+    """
+    leaves, treedef = tree_flatten(template)
+    M, A = leaves[0].shape[:2]
+    if alive is None:
+        alive_np = np.ones((M, A), bool)
+    else:
+        alive_np = np.asarray(torch.as_tensor(alive).cpu()) > 0
+    nets = [np.zeros(tuple(leaf.shape), np.int64) for leaf in leaves]
+    for m in range(M):
+        for i in range(A):
+            for j in range(i + 1, A):
+                if not (alive_np[m, i] and alive_np[m, j]):
+                    continue
+                rng = np.random.default_rng([seed, SECURE_AGG_STREAM, round_idx, m, i, j])
+                for li, leaf in enumerate(leaves):
+                    p = rng.integers(-(2**31), 2**31, size=tuple(leaf.shape[2:]), dtype=np.int64)
+                    nets[li][m, i] += p
+                    nets[li][m, j] -= p
+    device = leaves[0].device
+    masks = [torch.from_numpy((n & 0xFFFFFFFF).astype(np.uint32).view(np.int32)).to(device)
+             for n in nets]
+    return tree_unflatten(treedef, masks)
+
+
+def _ring_encode(x: torch.Tensor, frac_bits: int) -> torch.Tensor:
+    """Fixed point: round(x · 2^frac_bits) half to even, as int32 (|x| < 2^15).
+
+    Scaling by a power of two is exact in fp32 and fp64 alike, so rounding
+    in fp64 gives the reference's integers; the clamp makes an out-of-range
+    entry saturate on every device instead of taking the cast's own value.
+    """
+    scaled = torch.round(x.float().double() * (2.0 ** frac_bits))
+    return torch.clamp(scaled, -(2.0 ** 31), 2.0 ** 31 - 1).to(torch.int32)
+
+
+def secure_mask_uplink(theta2_active, masks, frac_bits: int = SECURE_AGG_FRAC_BITS):
+    """Worker-side masking: fixed-point encode the uplink and add the pairwise
+    mask in the ring ℤ_{2^32} (int64 add, then reduced and read as int32)."""
+    return tree_map(lambda x, m: _wrap_int32(_ring_encode(x, frac_bits).long() + m.long()),
+                    theta2_active, masks)
+
+
+def secure_local_aggregate(masked_uplink, like, mask: Optional[torch.Tensor] = None,
+                           frac_bits: int = SECURE_AGG_FRAC_BITS):
+    """Eq. (1) over ring-masked uplinks: [M, A, ...] int32 -> [M, ...] float.
+
+    The server sums the masked integers along the device axis in int64,
+    reduces mod 2^32 (exact, so the antisymmetric masks cancel to the bit),
+    and only then decodes to float and divides by the participant count.
+    ``like`` supplies the output dtype per leaf; ``mask`` [M, A] restricts
+    the sum to the round's real slots (a group with none returns zeros).
+    """
+    leaves, treedef = tree_flatten(masked_uplink)
+    like_leaves = tree_leaves(like)
+    M, A = leaves[0].shape[:2]
+    device = leaves[0].device
+    if mask is None:
+        w = torch.ones((M, A), dtype=torch.int64, device=device)
+    else:
+        w = (mask > 0).to(torch.int64)
+    cnt = torch.sum(w, dim=1)  # [M]
+    safe = torch.clamp_min(cnt, 1).float()
+    out = []
+    for x, ref in zip(leaves, like_leaves):
+        tail = (1,) * (x.dim() - 2)
+        ring_sum = _wrap_int32(torch.sum(x.long() * w.reshape(w.shape + tail), dim=1))
+        dec = ring_sum.float() / torch.full_like(safe, 2.0 ** frac_bits).reshape((-1,) + tail)
+        mean = dec / safe.reshape((-1,) + tail)
+        keep = (cnt > 0).reshape((-1,) + tail)
+        out.append(torch.where(keep, mean, torch.zeros((), device=device)).to(ref.dtype))
+    return tree_unflatten(treedef, out)
 
 
 def global_aggregate(theta, group_weights: torch.Tensor):

@@ -17,18 +17,24 @@ Only the sampled devices A_m are materialized ([M, A, ...]): unsampled
 devices are reset to θ2_m at every local aggregation anyway (line 15).
 Per-group and per-device gradients are ``torch.func.vmap`` over
 ``torch.func.grad``, as the reference vmaps ``jax.grad``.
+
+``HSGDRunner.round_fn`` builds one round per (P, Q, k, b) bucket, as the
+reference compiles one executor per bucket; the adaptive controller and the
+privacy path (DP noise in the exchange, secure-aggregation masks on eq. (1))
+drive it round by round.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import partial
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.func import grad, grad_and_value, vmap
 
 from repro_torch.common.config import FederationConfig, TrainConfig
-from repro_torch.common.pytree import tree_leaves, tree_map
+from repro_torch.common.pytree import tree_dot, tree_leaves, tree_map, tree_norm, tree_sub
 from repro_torch.core import federation as F
 from repro_torch.kernels.compress import compress_pytree
 from repro_torch.models.split_model import HybridModel
@@ -151,6 +157,43 @@ def local_sgd_step(model: HybridModel, state: HSGDState, lr: float) -> Tuple[HSG
     return _apply_sgd(state, lr, g0, g1, g2), torch.mean(losses)
 
 
+def _worker_dev2(g, gbar, lead: int):
+    """Σ_leaves ||g_worker − ḡ||² per worker: [M, ...]→[M] (lead=1) or
+    [M, A, ...]→[M, A] (lead=2)."""
+    per = tree_map(
+        lambda x, m: torch.sum((x - m.reshape((1,) * lead + tuple(m.shape))) ** 2,
+                               dim=tuple(range(lead, x.dim()))), g, gbar)
+    return sum(tree_leaves(per))
+
+
+def local_sgd_step_stats(
+    model: HybridModel, state: HSGDState, lr: float, group_weights
+) -> Tuple[HSGDState, torch.Tensor, Dict[str, Any]]:
+    """``local_sgd_step`` + the §VI-B online probe statistics, reusing the
+    step's own gradients (no extra forward/backward passes):
+
+      gbar    — the global-gradient proxy ∇F(θ̃): weighted group mean of
+                (g0, g1) and of the device means of g2 (eqs. (1)/(2) applied
+                to gradients instead of parameters);
+      gnorm2  — ‖gbar‖² (strategy 3's ‖∇F‖² input);
+      delta2  — mean squared deviation of per-worker gradients around gbar
+                (Assumption 2's δ² estimator).
+    """
+    losses, g0, g1, g2 = _local_grads(model, state)
+    gbar = {
+        "theta0": F.global_aggregate(g0, group_weights),
+        "theta1": F.global_aggregate(g1, group_weights),
+        "theta2": F.global_aggregate(F.local_aggregate(g2), group_weights),
+    }
+    gnorm2 = tree_dot(gbar, gbar)
+    delta2 = (
+        torch.mean(_worker_dev2(g0, gbar["theta0"], 1) + _worker_dev2(g1, gbar["theta1"], 1))
+        + torch.mean(_worker_dev2(g2, gbar["theta2"], 2))
+    )
+    new_state = _apply_sgd(state, lr, g0, g1, g2)
+    return new_state, torch.mean(losses), {"gbar": gbar, "gnorm2": gnorm2, "delta2": delta2}
+
+
 # ---------------------------------------------------------------------------
 # Exchange + aggregations
 # ---------------------------------------------------------------------------
@@ -164,6 +207,11 @@ def exchange(
     compression_k: float = 0.0,
     quant_levels: int = 0,
     idx: Optional[torch.Tensor] = None,
+    dp_clip=None,
+    dp_sigma=None,
+    dp_noise: Optional[torch.Tensor] = None,
+    dp_generator: Optional[torch.Generator] = None,
+    agg_masks=None,
 ) -> HSGDState:
     """Local aggregation (eq 1) + A_m/ξ_m agreement + ζ/θ0 exchange.
 
@@ -173,9 +221,20 @@ def exchange(
 
     ``idx`` ([M, A] data-row indices) pins the participants instead of
     drawing them from the state's generator.
+
+    Privacy legs: ``dp_clip`` (with ``dp_sigma``) runs the message through
+    the fused per-row clip + Gaussian-noise stage, with the noise rows drawn
+    from ``dp_generator`` or handed in as ``dp_noise``; ``agg_masks`` (a
+    round's int32 tree from ``F.secure_agg_masks``) routes eq. (1) through
+    the secure-aggregation ring, where the masks cancel exactly.
     """
     device = data["x1"].device
-    theta2_group = F.local_aggregate(state.theta2)  # eq (1)
+    dp = dp_clip is not None
+    if agg_masks is not None:  # eq (1) over masked uplinks
+        theta2_group = F.secure_local_aggregate(
+            F.secure_mask_uplink(state.theta2, agg_masks), state.theta2)
+    else:
+        theta2_group = F.local_aggregate(state.theta2)  # eq (1)
     A = fed.sampled_devices if idx is None else idx.shape[1]
     theta2 = F.broadcast_to_devices(theta2_group, A)  # line 15
 
@@ -187,9 +246,15 @@ def exchange(
     z2 = _h2_groups(model, theta2_group, batch["x2"])
     stale_theta0 = state.theta0
 
-    if compression_k or quant_levels:
+    if compression_k or quant_levels or dp:
+        dp_kw = {}
+        if dp:
+            if dp_noise is None and dp_generator is None:
+                raise ValueError("the DP exchange needs dp_noise or a dp_generator")
+            dp_kw = dict(dp_clip=dp_clip, dp_sigma=dp_sigma, dp_noise=dp_noise,
+                         dp_generator=dp_generator)
         msg = compress_pytree({"theta0": stale_theta0, "z1": z1, "z2": z2},
-                              compression_k or 1.0, quant_levels)
+                              compression_k or 1.0, quant_levels, **dp_kw)
         stale_theta0, z1, z2 = msg["theta0"], msg["z1"], msg["z2"]
 
     stale = {"theta0": stale_theta0, "z1": z1, "z2": z2}
@@ -225,14 +290,45 @@ def global_model(state: HSGDState, group_weights) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def _global_grad_zeros(state: HSGDState):
+    """Zero template shaped like the global-gradient proxy (one model copy)."""
+    return {
+        "theta0": tree_map(lambda x: torch.zeros_like(x[0]), state.theta0),
+        "theta1": tree_map(lambda x: torch.zeros_like(x[0]), state.theta1),
+        "theta2": tree_map(lambda x: torch.zeros_like(x[0, 0]), state.theta2),
+    }
+
+
+# Second word of the DP noise seed (``SeedSequence([seed, DP_NOISE_STREAM])``),
+# so the noise generator never shares a stream with the A_m generator.
+DP_NOISE_STREAM = 5
+
+
+def dp_noise_generator(seed: int, device) -> torch.Generator:
+    """The generator a private run draws its DP noise rows from: on
+    ``device`` (the data's), seeded from the run's ``seed`` through
+    ``SeedSequence([seed, DP_NOISE_STREAM])``, apart from the A_m stream."""
+    word = np.random.SeedSequence([seed, DP_NOISE_STREAM]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(word))
+
+
 @dataclass(frozen=True)
 class HSGDRunner:
-    """HSGD trainer for a (model, federation, train) configuration."""
+    """HSGD trainer for a (model, federation, train) configuration.
+
+    ``run`` executes whole fixed-interval runs. ``round_fn`` hands out one
+    round per (P, Q, k, b, collect[, dp, secure_agg]) bucket, cached in
+    ``_round_cache`` as the reference caches its compiled executors (the
+    cache's size is what the launcher reports as ``executors_compiled``);
+    the adaptive controller and ``run_private`` drive rounds through it.
+    """
 
     model: HybridModel
     fed: FederationConfig
     train: TrainConfig
     do_global_agg: bool = True  # False reproduces TDCD's missing phase
+    # bucket key -> round executor
+    _round_cache: Dict = field(default_factory=dict, compare=False, repr=False)
 
     def run(self, state: HSGDState, data, group_weights, rounds: int,
             participants: Optional[torch.Tensor] = None):
@@ -244,23 +340,168 @@ class HSGDRunner:
         may update it in place, as the reference donates it — so rebind the
         returned state. Losses stay on the state's device, one per step.
         """
-        fed, model, train = self.fed, self.model, self.train
+        fed, train = self.fed, self.train
         if participants is not None and participants.shape[0] != rounds * fed.lam:
             raise ValueError(f"participants holds {participants.shape[0]} draws; "
                              f"{rounds} rounds need rounds·Λ = {rounds * fed.lam}")
         lr_fn = halving_schedule(train.learning_rate, train.lr_halve_every)
         losses = []
         for r in range(rounds):
-            if self.do_global_agg:
-                state = global_aggregation(state, fed, group_weights)
-            for i in range(fed.lam):
-                idx = None if participants is None else participants[r * fed.lam + i]
-                state = exchange(model, state, data, fed, train.compression_k,
-                                 train.quantization_bits, idx=idx)
-                for _ in range(fed.local_interval):
-                    state, loss = local_sgd_step(model, state, lr_fn(state.step))
-                    losses.append(loss)
-        out = torch.stack(losses) if losses else torch.zeros(0, device=data["x1"].device)
+            part = None if participants is None else participants[r * fed.lam:(r + 1) * fed.lam]
+            state, loss = self._round_impl(state, data, group_weights, lr_fn, fed.local_interval,
+                                           fed.lam, train.compression_k,
+                                           train.quantization_bits, False, participants=part)
+            losses.append(loss)
+        out = torch.cat(losses) if losses else torch.zeros(0, device=data["x1"].device)
+        return state, out
+
+    def _round_impl(self, state: HSGDState, data, group_weights, lr: Callable[[int], float],
+                    Q: int, lam: int, compression_k: float, quant_levels: int,
+                    collect: bool, participants=None, dp_clip=None, dp_sigma=None,
+                    dp_noise=None, dp_generator=None, agg_masks=None):
+        """One global round: global aggregation, then Λ × (exchange, Q steps).
+
+        With ``collect`` every step also returns the §VI-B probe stats; ρ
+        secants pair consecutive steps *within* an interval only (same batch
+        ⇒ a clean Lipschitz quotient), so Q = 1 rounds yield no ρ samples.
+        """
+        fed, model = self.fed, self.model
+        if self.do_global_agg:
+            state = global_aggregation(state, fed, group_weights)
+        stats = {k: [] for k in ("loss", "gnorm2", "delta2", "rho", "rho_ok")}
+        for i in range(lam):
+            state = exchange(
+                model, state, data, fed, compression_k, quant_levels,
+                idx=None if participants is None else participants[i],
+                dp_clip=dp_clip, dp_sigma=dp_sigma,
+                dp_noise=None if dp_noise is None else dp_noise[i],
+                dp_generator=dp_generator, agg_masks=agg_masks)
+            if not collect:
+                for _ in range(Q):
+                    state, loss = local_sgd_step(model, state, lr(state.step))
+                    stats["loss"].append(loss)
+                continue
+            prev_g, prev_ok = _global_grad_zeros(state), False
+            for _ in range(Q):
+                lr_t = lr(state.step)
+                state, loss, aux = local_sgd_step_stats(model, state, lr_t, group_weights)
+                if prev_ok:
+                    diff = tree_norm(tree_sub(aux["gbar"], prev_g))
+                    rho = diff / torch.clamp_min(lr_t * tree_norm(prev_g), 1e-12)
+                else:
+                    rho = torch.zeros((), device=loss.device)
+                stats["loss"].append(loss)
+                stats["gnorm2"].append(aux["gnorm2"])
+                stats["delta2"].append(aux["delta2"])
+                stats["rho"].append(rho)
+                stats["rho_ok"].append(torch.full((), float(prev_ok), device=loss.device))
+                prev_g, prev_ok = aux["gbar"], True
+        if not collect:
+            return state, torch.stack(stats["loss"])
+        return state, {k: torch.stack(v) for k, v in stats.items()}
+
+    def round_fn(self, P: int, Q: int, compression_k: Optional[float] = None,
+                 quant_levels: Optional[int] = None, collect_stats: bool = True,
+                 dp: bool = False, secure_agg: bool = False):
+        """The single-round executor of a (P, Q, compression) bucket.
+
+        fn(state, data, group_weights, lr, dp_clip=None, dp_sigma=None,
+        agg_masks=None, participants=None, dp_noise=None, dp_generator=None)
+        -> (state, stats) with stats a dict of [P] per-step tensors
+        (loss/gnorm2/delta2/rho/rho_ok) when ``collect_stats``, else (state,
+        losses [P]). ``lr`` is η for the whole round (rounded to fp32 as the
+        reference's traced scalar is) or a step -> η schedule. Consumes
+        ``state`` like ``run``.
+
+        ``dp``/``secure_agg`` extend the cache key by one bit each, as in the
+        reference; clip, σ and the masks are per-call operands, so a new σ
+        (the controller's DP governor) or re-keyed masks reuse the entry.
+        With ``dp`` the call takes ``dp_clip``, ``dp_sigma`` and either a
+        ``dp_generator`` or ``dp_noise`` (one matrix per exchange); with
+        ``secure_agg`` it takes ``agg_masks``. ``participants`` ([Λ, M, A])
+        pins the round's draws.
+        """
+        if P < 1 or Q < 1 or P % Q:
+            raise ValueError(f"P={P} must be a positive multiple of Q={Q}")
+        k = self.train.compression_k if compression_k is None else compression_k
+        b = self.train.quantization_bits if quant_levels is None else quant_levels
+        key = (P, Q, k, b, collect_stats)
+        if dp or secure_agg:
+            key = key + (dp, secure_agg)
+        fn = self._round_cache.get(key)
+        if fn is None:
+            lam = P // Q
+
+            def hsgd_round(state, data, group_weights, lr, dp_clip=None, dp_sigma=None,
+                           agg_masks=None, participants=None, dp_noise=None, dp_generator=None):
+                if dp and dp_clip is None:
+                    raise ValueError("a dp round needs dp_clip and dp_sigma")
+                if secure_agg and agg_masks is None:
+                    raise ValueError("a secure_agg round needs agg_masks")
+                if participants is not None and len(participants) != lam:
+                    raise ValueError(f"participants holds {len(participants)} draws; "
+                                     f"a round needs Λ = {lam}")
+                # a number is η for the round, rounded to fp32 as the
+                # reference's traced scalar is
+                lr_of = lr if callable(lr) else (lambda step, eta=float(np.float32(lr)): eta)
+                return self._round_impl(
+                    state, data, group_weights, lr_of, Q, lam, k, b, collect_stats,
+                    participants=participants,
+                    dp_clip=dp_clip if dp else None, dp_sigma=dp_sigma if dp else None,
+                    dp_noise=dp_noise if dp else None,
+                    dp_generator=dp_generator if dp else None,
+                    agg_masks=agg_masks if secure_agg else None)
+
+            fn = self._round_cache[key] = hsgd_round
+        return fn
+
+    def run_private(self, state: HSGDState, data, group_weights, rounds: int,
+                    seed: int = 0, dp_clip: float = 0.0, dp_sigma: float = 0.0,
+                    secure_agg: bool = False,
+                    participants: Optional[torch.Tensor] = None,
+                    dp_noise: Optional[Sequence[torch.Tensor]] = None):
+        """Fixed-interval run with the privacy legs on.
+
+        A round loop over one ``round_fn`` bucket: the secure-aggregation
+        masks are drawn on the host (numpy, stream 4) and re-keyed every
+        round; DP noise rows come from ``dp_noise_generator(seed)`` on the
+        data's device. η follows the halving schedule sampled at each round's
+        first step, once per round, as the reference's traced scalar does.
+        ``participants`` ([rounds·Λ, M, A]) and ``dp_noise`` (one matrix per
+        exchange) replace the draws, e.g. with the reference's.
+
+        Returns (state, per-step losses [rounds * P]).
+        """
+        dp = dp_clip > 0.0
+        if dp_sigma > 0.0 and not dp:
+            raise ValueError("dp_sigma > 0 requires a positive dp_clip")
+        fed = self.fed
+        Q, lam = fed.local_interval, fed.lam
+        P = Q * lam
+        for name, draws in (("participants", participants), ("dp_noise", dp_noise)):
+            if draws is not None and len(draws) != rounds * lam:
+                raise ValueError(f"{name} holds {len(draws)} draws; {rounds} rounds "
+                                 f"need rounds·Λ = {rounds * lam}")
+        fn = self.round_fn(P, Q, collect_stats=False, dp=dp, secure_agg=secure_agg)
+        lr_fn = halving_schedule(self.train.learning_rate, self.train.lr_halve_every)
+        device = data["x1"].device
+        kwargs: Dict[str, Any] = {}
+        if dp:
+            kwargs["dp_clip"] = torch.tensor(dp_clip, dtype=torch.float32, device=device)
+            kwargs["dp_sigma"] = torch.tensor(dp_sigma, dtype=torch.float32, device=device)
+            if dp_noise is None:
+                kwargs["dp_generator"] = dp_noise_generator(seed, device)
+        losses, step = [], 0
+        for r in range(rounds):
+            part = slice(r * lam, (r + 1) * lam)
+            if secure_agg:
+                kwargs["agg_masks"] = F.secure_agg_masks(state.theta2, seed, r)
+            state, loss = fn(state, data, group_weights, lr_fn(step),
+                             participants=None if participants is None else participants[part],
+                             dp_noise=None if dp_noise is None else dp_noise[part], **kwargs)
+            losses.append(loss)
+            step += P
+        out = torch.cat(losses) if losses else torch.zeros(0, device=device)
         return state, out
 
 

@@ -1,10 +1,14 @@
 """Fused top-k sparsify + b-level quantize (C-HSGD §VII-A1) on the card.
 
-``fused_compress`` launches the hand-written CUDA kernel in
-``csrc/compress.cu``, the port of the TPU kernel
-``repro/kernels/compress.py::_fused_compress_call`` (``_compress_kernel``).
-One read and one write per message row; the kernel is bit-identical to the
-plain version ``core/compression.py::compress_rows_ref``.
+``fused_compress`` launches the hand-written CUDA kernels in
+``csrc/compress.cu``: without DP the port of the TPU kernel
+``repro/kernels/compress.py::_fused_compress_call`` (``_compress_kernel``),
+counted under ``launch_counts["fused_compress"]``; with DP (``dp_noise``
+given) the port of ``_fused_compress_dp_call`` (``_compress_dp_kernel``),
+which clips each row and adds Gaussian noise first, counted under
+``launch_counts["fused_compress_dp"]``. One read and one write per message
+row; both kernels are bit-identical to the plain version
+``core/compression.py::compress_rows_ref``.
 
 ``compress_rows`` routes by the tensor's device alone: a CPU tensor goes to
 the plain version, a CUDA tensor to the kernel. There is no switch and no
@@ -12,7 +16,8 @@ fallback: what the kernel does not take raises.
 
 ``compress_pytree`` stacks every leaf of a message tree into one padded
 row matrix with a per-row valid length, so a whole exchange message
-(θ0 + ζ1 + ζ2) costs one launch.
+(θ0 + ζ1 + ζ2) costs one launch. Its DP noise rows are drawn on the
+matrix's device from the caller's generator, or handed in.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.pytree import tree_flatten, tree_unflatten
-from repro_torch.core.compression import compress_rows_ref
+from repro_torch.core.compression import compress_rows_ref, dp_scalar
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.build import load
 
@@ -40,24 +45,41 @@ def _per_row(v, rows: int, device) -> torch.Tensor:
     return t.contiguous()
 
 
+def _check_matrix(name: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_compress runs on CUDA tensors, got {name} on {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_compress takes float32, got {name} of {x.dtype}")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"fused_compress takes a contiguous [rows, n] {name}, got "
+                         f"shape {tuple(x.shape)} strides {x.stride()}")
+
+
 def fused_compress(
     x: torch.Tensor,
     k: Union[int, torch.Tensor],
     levels: int = 0,
     row_len: Optional[torch.Tensor] = None,
+    dp_clip=None,
+    dp_sigma=None,
+    dp_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The CUDA kernel: x [rows, n] fp32 contiguous on the card -> same.
 
     k: scalar or per-row keep count (k >= n is a per-row no-op). levels <= 1
     disables quantization. row_len: optional per-row valid length.
+    dp_noise: [rows, n] fp32 standard normals on the card; given, the DP
+    kernel clips each row to ``dp_clip`` and adds ``dp_sigma·dp_clip·noise``
+    first (clip and σ: floats or one-element tensors, best on the card).
     """
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_compress runs on a CUDA tensor, got device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"fused_compress takes float32, got {x.dtype}")
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"fused_compress takes a contiguous [rows, n] matrix, got "
-                         f"shape {tuple(x.shape)} strides {x.stride()}")
+    _check_matrix("x", x)
+    if dp_noise is not None:
+        _check_matrix("dp_noise", dp_noise)
+        if dp_noise.shape != x.shape or dp_noise.device != x.device:
+            raise ValueError(f"dp_noise {tuple(dp_noise.shape)} on {dp_noise.device} does "
+                             f"not match x {tuple(x.shape)} on {x.device}")
+        clip = dp_scalar("dp_clip", dp_clip, x.device).contiguous()
+        sigma = dp_scalar("dp_sigma", dp_sigma, x.device).contiguous()
     rows, n = x.shape
     if n * 4 > MAX_ROW_BYTES:
         raise ValueError(f"a row of {n} floats does not fit in one block's shared memory "
@@ -69,12 +91,20 @@ def fused_compress(
         return out
     lib = load("compress")
     with torch.cuda.device(x.device):
-        err = lib.compress_rows_f32(
-            x.data_ptr(), k_arr.data_ptr(), len_arr.data_ptr(), out.data_ptr(),
-            rows, n, int(levels), torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if dp_noise is None:
+            fn, counter = "compress_rows_f32", "fused_compress"
+            err = lib.compress_rows_f32(
+                x.data_ptr(), k_arr.data_ptr(), len_arr.data_ptr(), out.data_ptr(),
+                rows, n, int(levels), stream)
+        else:
+            fn, counter = "compress_rows_dp_f32", "fused_compress_dp"
+            err = lib.compress_rows_dp_f32(
+                x.data_ptr(), k_arr.data_ptr(), len_arr.data_ptr(), dp_noise.data_ptr(),
+                clip.data_ptr(), sigma.data_ptr(), out.data_ptr(), rows, n, int(levels), stream)
     if err:
-        raise RuntimeError(f"compress_rows_f32 launch failed: {lib.cuda_error_string(err).decode()}")
-    launch_counts["fused_compress"] += 1
+        raise RuntimeError(f"{fn} launch failed: {lib.cuda_error_string(err).decode()}")
+    launch_counts[counter] += 1
     return out
 
 
@@ -83,11 +113,14 @@ def compress_rows(
     k: Union[int, torch.Tensor],
     levels: int = 0,
     row_len: Optional[torch.Tensor] = None,
+    dp_clip=None,
+    dp_sigma=None,
+    dp_noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Router: the plain version for a CPU tensor, the kernel otherwise."""
     if x.device.type == "cpu":
-        return compress_rows_ref(x, k, levels, row_len)
-    return fused_compress(x, k, levels, row_len)
+        return compress_rows_ref(x, k, levels, row_len, dp_clip, dp_sigma, dp_noise)
+    return fused_compress(x, k, levels, row_len, dp_clip, dp_sigma, dp_noise)
 
 
 def stack_rows(leaves, k_frac: float):
@@ -110,17 +143,32 @@ def stack_rows(leaves, k_frac: float):
     return torch.cat(mats, dim=0), k_rows, len_rows, counts
 
 
-def compress_pytree(tree, k_frac: float, levels: int = 0):
+def compress_pytree(tree, k_frac: float, levels: int = 0, dp_clip=None, dp_sigma=None,
+                    dp_noise: Optional[torch.Tensor] = None,
+                    dp_generator: Optional[torch.Generator] = None):
     """Compress every leaf of a message tree in ONE batched row-matrix call.
 
     The leaves are stacked by ``stack_rows``; the per-row valid length keeps
     the result identical to compressing each leaf separately.
+
+    DP: with ``dp_noise`` (standard normals shaped like the stacked matrix)
+    or ``dp_generator`` (a generator on the tree's device, from which that
+    noise is drawn with ``torch.randn``), every row goes through the fused
+    clip + noise stage with clip ``dp_clip`` and multiplier ``dp_sigma``.
     """
-    if not (0.0 < k_frac < 1.0) and not (levels and levels > 1):
+    dp = dp_noise is not None or dp_generator is not None
+    if not (0.0 < k_frac < 1.0) and not (levels and levels > 1) and not dp:
         return tree
     leaves, treedef = tree_flatten(tree)
     mat, k_rows, len_rows, counts = stack_rows(leaves, k_frac)
-    out = compress_rows(mat, k_rows, levels, len_rows)
+    if dp and dp_noise is None:
+        dp_noise = torch.randn(mat.shape, generator=dp_generator, device=mat.device)
+    elif dp:
+        if dp_noise.shape != mat.shape:
+            raise ValueError(f"dp_noise {tuple(dp_noise.shape)} does not match the stacked "
+                             f"message {tuple(mat.shape)}")
+        dp_noise = dp_noise.to(device=mat.device, dtype=torch.float32).contiguous()
+    out = compress_rows(mat, k_rows, levels, len_rows, dp_clip, dp_sigma, dp_noise)
     new_leaves, off = [], 0
     for leaf, r in zip(leaves, counts):
         n = int(leaf.shape[-1]) if leaf.dim() else 1

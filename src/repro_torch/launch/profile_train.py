@@ -10,8 +10,10 @@ every kernel, copy and memset the device ran, and prints one JSON line:
 steps/s, the time the device was busy (the union of those intervals)
 against the unprofiled wall time, kernels per step, the launches and
 device time of the port's own kernels, and the kernels that took the most
-device time. ``--trace`` keeps the Chrome trace. It takes the training flags of ``repro_torch.launch.train``
-and needs a CUDA device.
+device time. ``--trace`` keeps the Chrome trace. It takes the training
+flags of ``repro_torch.launch.train``, the privacy flags and ``--adaptive``
+included (each timed call then runs the private round loop, or a whole
+adaptive run of ``--rounds`` × P steps), and needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.launch import train as T
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # The port's hand-written kernels, by the name of their __global__ function.
-PORT_KERNELS = ("compress_rows_kernel",)
+PORT_KERNELS = ("compress_rows_kernel", "compress_rows_dp_kernel")
 
 
 def device_intervals(trace_path: str):
@@ -75,19 +77,25 @@ def main(argv=None):
     model, fed, train, data, w, _ = T.setup_ehealth(args, device)
     runner, eff_fed = make_runner(args.algorithm, model, fed, train)
     state = init_state(torch.Generator().manual_seed(args.seed), model, eff_fed, data)
-    state, _ = runner.run(state, data, w, 1)  # warm-up: cuBLAS handles, allocator
+
+    def run_rounds(state, rounds):
+        state, losses, _, _ = T.train_rounds(args, model, fed, runner, state, data, w,
+                                             rounds)
+        return state, losses
+
+    state, _ = run_rounds(state, 1)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    state, losses = runner.run(state, data, w, args.rounds)
+    state, losses = run_rounds(state, args.rounds)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    steps = int(losses.numel())
+    steps = int(len(losses))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        state, _ = runner.run(state, data, w, args.rounds)
+        state, _ = run_rounds(state, args.rounds)
         torch.cuda.synchronize()
         profiled_wall_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
@@ -102,6 +110,8 @@ def main(argv=None):
     out = {
         "device": torch.cuda.get_device_name(0),
         "algorithm": args.algorithm, "groups": args.groups, "devices": args.devices,
+        "adaptive": args.adaptive, "dp_clip": args.dp_clip, "dp_sigma": args.dp_sigma,
+        "secure_agg": args.secure_agg,
         "rounds": args.rounds, "steps": steps,
         "wall_s": wall_s, "steps_per_s": steps / wall_s,
         "profiled_wall_s": profiled_wall_s,

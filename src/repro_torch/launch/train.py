@@ -5,13 +5,20 @@ E-health simulation (paper reproduction): --model paper-cnn|paper-lstm with
 3-tier partitioned synthetic data and reports the paper's metrics. It runs on
 the card unless ``--device cpu`` is given.
 
-The parser takes every flag of ``repro.launch.train``; the fixed-interval
-e-health path is what this package runs so far. The adaptive, population,
-privacy, fault, checkpoint and ``--arch`` flags raise ``SystemExit``.
+The parser takes every flag of ``repro.launch.train``. This package runs
+the fixed-interval e-health path, its privacy-hardened variant (``--dp-clip``,
+``--dp-sigma``, ``--epsilon``, ``--delta``, ``--secure-agg``) and the §VI
+adaptive loop (``--adaptive``, with ``--byte-budget-mb``, ``--target-bound``,
+``--max-interval`` and the privacy flags). The population, fault,
+checkpoint and ``--arch`` flags raise ``SystemExit``.
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --model paper-cnn \
       --algorithm c-hsgd --rounds 50
+  PYTHONPATH=src python -m repro_torch.launch.train --algorithm c-hsgd \
+      --dp-clip 1 --dp-sigma 1 --secure-agg --rounds 10
+  PYTHONPATH=src python -m repro_torch.launch.train --algorithm c-hsgd \
+      --adaptive --dp-clip 1 --dp-sigma 1 --epsilon 25 --rounds 10
 """
 from __future__ import annotations
 
@@ -27,6 +34,13 @@ from repro_torch.common.backend import resolve_device
 from repro_torch.common.config import FederationConfig, TrainConfig
 from repro_torch.core import metrics as MET
 from repro_torch.core.baselines import make_runner, merge_groups_for_tdcd
+from repro_torch.core.controller import (
+    AdaptiveConfig,
+    AdaptiveHSGDRunner,
+    epsilon_of,
+    gaussian_rho,
+    ladder_from,
+)
 from repro_torch.core.hsgd import global_model, init_state, make_group_weights
 from repro_torch.data.partition import hybrid_partition
 from repro_torch.data.synthetic import DATASETS, flatten_for_tower, make_dataset, vertical_split
@@ -34,10 +48,10 @@ from repro_torch.models.split_model import cnn_hybrid, lstm_hybrid
 
 # Flags of the reference CLI whose paths come with later slices.
 NOT_PORTED = (
-    "arch", "smoke", "adaptive", "population", "dp_clip", "dp_sigma", "epsilon",
-    "secure_agg", "checkpoint", "ckpt_every", "resume", "fault_dropout", "fault_nan",
-    "fault_outlier", "fault_msg_corrupt", "fault_msg_loss", "fault_msg_dup",
-    "fault_latency", "preempt_round", "fault_seed", "fault_trace", "no_defense",
+    "arch", "smoke", "population", "checkpoint", "ckpt_every", "resume",
+    "fault_dropout", "fault_nan", "fault_outlier", "fault_msg_corrupt", "fault_msg_loss",
+    "fault_msg_dup", "fault_latency", "preempt_round", "fault_seed", "fault_trace",
+    "no_defense",
 )
 
 
@@ -80,13 +94,61 @@ def setup_ehealth(args, device):
     return model, fed, train, data, make_group_weights(data), (X, y)
 
 
+def is_private(args) -> bool:
+    return args.dp_clip > 0.0 or args.secure_agg
+
+
+def train_rounds(args, model, fed, runner, state, data, w, rounds: int):
+    """Train ``rounds`` rounds on the path the flags pick: the §VI adaptive
+    loop, the fixed-interval private run, or the plain fixed-interval run.
+    Returns (state, per-step losses, adaptive history or None, the runner
+    whose round cache the run filled)."""
+    algo = args.algorithm
+    if is_private(args) and algo not in ("hsgd", "c-hsgd"):
+        raise SystemExit(f"--dp-clip/--dp-sigma/--secure-agg drive the HSGD exchange; "
+                         f"got --algorithm {algo}")
+    if args.adaptive:
+        if algo not in ("hsgd", "c-hsgd"):
+            raise SystemExit(f"--adaptive drives the HSGD loop; got --algorithm {algo}")
+        eff_train = runner.train  # c-hsgd defaults (k=0.25, b=128) applied
+        acfg = AdaptiveConfig(
+            total_steps=rounds * fed.global_interval,
+            target_bound=args.target_bound,
+            byte_budget=args.byte_budget_mb * 1e6,
+            max_interval=args.max_interval,
+            eta_max=max(args.lr * 10, 0.05),
+            # explicit --compression-k/--quantization (or c-hsgd defaults)
+            # become the governor's rung 0 — never silently loosened
+            ladder=ladder_from(eff_train.compression_k, eff_train.quantization_bits),
+            privacy_budget=args.epsilon,
+            privacy_delta=args.delta,
+            dp_clip=args.dp_clip,
+            dp_sigma=args.dp_sigma,
+            secure_agg=args.secure_agg,
+        )
+        controller = AdaptiveHSGDRunner(model, fed, eff_train, acfg)
+        state, losses, history = controller.run(
+            state, data, w, probe_generator=torch.Generator().manual_seed(args.seed + 1))
+        return state, losses, history, controller.runner
+    if is_private(args):
+        state, losses = runner.run_private(
+            state, data, w, rounds=rounds, seed=args.seed, dp_clip=args.dp_clip,
+            dp_sigma=args.dp_sigma, secure_agg=args.secure_agg)
+        return state, losses, None, runner
+    state, losses = runner.run(state, data, w, rounds=rounds)
+    return state, losses, None, runner
+
+
 def run_ehealth(args) -> Tuple[dict, np.ndarray]:
-    """Train and evaluate; prints the metrics JSON and returns it with the
-    per-step training losses."""
+    """Train and evaluate; prints the metrics JSON (after the ``[adaptive]``
+    round lines of an adaptive run) and returns it with the per-step
+    training losses."""
     device = resolve_device(args.device)
     spec = DATASETS[args.dataset]
-    model, fed, train, data, w, (X, y) = setup_ehealth(args, device)
     algo = args.algorithm
+    dp = args.dp_clip > 0.0 and args.dp_sigma > 0.0
+    private = is_private(args)
+    model, fed, train, data, w, (X, y) = setup_ehealth(args, device)
     runner, eff_fed = make_runner(algo, model, fed, train)
     generator = torch.Generator().manual_seed(args.seed)
     if algo == "jfl":
@@ -95,10 +157,18 @@ def run_ehealth(args) -> Tuple[dict, np.ndarray]:
         state = init_state(generator, model, eff_fed, data)
 
     t0 = time.time()
-    state, losses = runner.run(state, data, w, rounds=args.rounds)
-    losses = losses.cpu().numpy()  # waits for the device
+    state, losses, history, runner = train_rounds(
+        args, model, fed, runner, state, data, w, args.rounds)
+    losses = torch.as_tensor(losses).cpu().numpy()  # waits for the device
     dt = time.time() - t0
     gm = runner.global_model(state, w) if algo == "jfl" else global_model(state, w)
+    for h in history or ():
+        eps = (f" σ={h['dp_sigma']:.3g} ε={h['epsilon_total']:.3g}"
+               if h.get("dp_sigma") else "")
+        print(f"[adaptive] round {h['round']:3d}: P=Q={h['P']:3d} "
+              f"eta={h['eta']:.4g} rung={h['rung']} Γ={h['gamma']:.3g} "
+              f"bytes={h['bytes_total'] / 1e6:.2f}MB "
+              f"loss={h['loss_last']:.4f}{eps}")
 
     X1, X2 = vertical_split(spec, X)
     m = MET.evaluate_global(
@@ -107,6 +177,22 @@ def run_ehealth(args) -> Tuple[dict, np.ndarray]:
     m["train_loss_final"] = float(losses[-1]) if len(losses) else float("nan")
     m["steps"] = int(len(losses))
     m["wall_s"] = round(dt, 2)
+    if history is not None:
+        m["adaptive_rounds"] = len(history)
+        m["adaptive_bytes_total"] = history[-1]["bytes_total"]
+        m["adaptive_final_PQ"] = history[-1]["P"]
+        if dp and history:
+            m["epsilon"] = history[-1]["epsilon_total"]
+            m["delta"] = args.delta
+    elif dp:
+        # fixed-interval ledger: one Gaussian release per exchange, Λ = P/Q
+        # exchanges per round (zCDP composition, same math as the controller)
+        releases = args.rounds * eff_fed.lam
+        m["epsilon"] = epsilon_of(releases * gaussian_rho(args.dp_sigma), args.delta)
+        m["delta"] = args.delta
+    if private:
+        m["secure_agg"] = bool(args.secure_agg)
+        m["executors_compiled"] = len(runner._round_cache)
     print(json.dumps(m, indent=1))
     return m, losses
 
@@ -177,9 +263,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def validate_args(ap: argparse.ArgumentParser, args) -> None:
+    """The reference's checks of the privacy flags, as argparse errors."""
+    if args.dp_clip < 0.0:
+        ap.error(f"--dp-clip must be >= 0, got {args.dp_clip}")
+    if args.dp_sigma < 0.0:
+        ap.error(f"--dp-sigma must be >= 0, got {args.dp_sigma}")
+    if args.dp_sigma > 0.0 and args.dp_clip <= 0.0:
+        ap.error("--dp-sigma > 0 needs --dp-clip > 0 (noise std is σ·C)")
+    if not 0.0 < args.delta < 1.0:
+        ap.error(f"--delta must be in (0, 1), got {args.delta}")
+    if args.epsilon <= 0.0:
+        ap.error(f"--epsilon must be > 0, got {args.epsilon}")
+    if is_private(args) and args.arch:
+        ap.error("the privacy flags drive the e-health HSGD path, not --arch")
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = build_parser()
     args = ap.parse_args(argv)
+    validate_args(ap, args)
     used = [f"--{name.replace('_', '-')}" for name in NOT_PORTED
             if getattr(args, name) != ap.get_default(name)]
     if used:

@@ -8,6 +8,9 @@ import sys
 import pytest
 import torch
 
+from repro.launch import train as REF
+from repro_torch.core.controller import epsilon_of, gaussian_rho
+from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.launch import train as T
 from repro_torch.launch.profile_train import busy_us, device_intervals, port_kernel_times
 
@@ -17,6 +20,10 @@ TINY = ["--groups", "2", "--devices", "16", "--samples", "128", "--rounds", "2"]
 # path: ``evaluate_global``'s metrics, then the three run keys.
 REFERENCE_KEYS = {"loss", "accuracy", "precision", "recall", "f1", "auc_roc",
                   "train_loss_final", "steps", "wall_s"}
+# The keys its adaptive and privacy branches add.
+ADAPTIVE_KEYS = {"adaptive_rounds", "adaptive_bytes_total", "adaptive_final_PQ"}
+PRIVATE_KEYS = {"secure_agg", "executors_compiled"}
+DP_KEYS = {"epsilon", "delta"}
 
 
 @pytest.fixture(autouse=True)
@@ -45,6 +52,63 @@ def test_run_ehealth_emits_reference_keys(algorithm, capsys):
     assert 0.0 <= m["accuracy"] <= 1.0 and 0.0 <= m["auc_roc"] <= 1.0
 
 
+@pytest.mark.parametrize("flags,keys", [
+    (["--dp-clip", "1", "--dp-sigma", "1", "--secure-agg"], PRIVATE_KEYS | DP_KEYS),
+    (["--secure-agg"], PRIVATE_KEYS),
+    (["--dp-clip", "1"], PRIVATE_KEYS),
+    (["--adaptive"], ADAPTIVE_KEYS),
+    (["--adaptive", "--dp-clip", "1", "--dp-sigma", "1", "--epsilon", "25", "--secure-agg"],
+     ADAPTIVE_KEYS | PRIVATE_KEYS | DP_KEYS),
+])
+def test_private_and_adaptive_emit_reference_keys(flags, keys, capsys):
+    """The privacy flags and --adaptive on the CPU: the reference's JSON keys
+    (after the adaptive round lines), and the ε of the composed releases."""
+    reset_launch_counts()
+    metrics, losses = T.run_ehealth(T.parse_args(["--device", "cpu", "--algorithm", "c-hsgd"]
+                                                 + TINY + flags))
+    out = capsys.readouterr().out
+    rounds = [ln for ln in out.splitlines() if ln.startswith("[adaptive] round")]
+    assert json.loads(out[out.index("{"):]) == metrics
+    assert set(metrics) == REFERENCE_KEYS | keys
+    assert torch.isfinite(torch.as_tensor(losses)).all()
+    assert not launch_counts  # the CPU takes the plain versions
+    if "--adaptive" in flags:
+        assert len(rounds) == metrics["adaptive_rounds"] > 0
+        assert metrics["steps"] == len(losses) <= 2 * 4
+    else:
+        assert not rounds and metrics["steps"] == 2 * 4
+        assert metrics["executors_compiled"] == 1
+        if "epsilon" in keys:
+            assert metrics["epsilon"] == epsilon_of(2 * 2 * gaussian_rho(1.0), 1e-5)
+    if "epsilon" in keys and "--adaptive" in flags:
+        assert metrics["epsilon"] <= 25 and "σ=1 ε=" in rounds[0]
+
+
+@pytest.mark.parametrize("flags", [["--dp-sigma", "1"], ["--dp-clip", "-1"],
+                                   ["--dp-sigma", "-0.5", "--dp-clip", "1"], ["--delta", "0"],
+                                   ["--delta", "1.5"], ["--epsilon", "0"]])
+def test_privacy_argument_checks_match_reference(flags, capsys):
+    with pytest.raises(SystemExit) as ref:
+        REF.main(flags)
+    ref_err = capsys.readouterr().err.strip().splitlines()[-1]
+    with pytest.raises(SystemExit) as port:
+        T.parse_args(["--device", "cpu"] + flags)
+    assert port.value.code == ref.value.code == 2
+    assert capsys.readouterr().err.strip().splitlines()[-1] == ref_err
+
+
+@pytest.mark.parametrize("flags", [["--algorithm", "jfl", "--dp-clip", "1"],
+                                   ["--algorithm", "tdcd", "--secure-agg"],
+                                   ["--algorithm", "c-tdcd", "--adaptive"]])
+def test_other_algorithms_refuse_the_hsgd_paths(flags):
+    with pytest.raises(SystemExit) as ref:
+        REF.main(TINY + flags)
+    with pytest.raises(SystemExit) as port:
+        T.run_ehealth(T.parse_args(["--device", "cpu"] + TINY + flags))
+    assert str(port.value) == str(ref.value)
+    assert "drive" in str(port.value)
+
+
 @pytest.mark.parametrize("algorithm", ["jfl", "tdcd", "c-tdcd", "centralized"])
 def test_baselines_run_on_cpu(algorithm, capsys):
     m, losses = _run(["--device", "cpu", "--algorithm", algorithm] + TINY, capsys)
@@ -68,8 +132,9 @@ def test_default_device_is_cuda_and_raises_without_it():
         T.run_ehealth(T.parse_args(TINY))
 
 
-@pytest.mark.parametrize("flag", [["--adaptive"], ["--population", "sync"], ["--arch", "gemma3-1b"],
-                                  ["--dp-clip", "1.0"], ["--secure-agg"], ["--fault-nan", "0.1"],
+@pytest.mark.parametrize("flag", [["--fault-msg-loss", "0.1"], ["--population", "sync"],
+                                  ["--arch", "gemma3-1b"], ["--ckpt-every", "1"],
+                                  ["--preempt-round", "3"], ["--fault-nan", "0.1"],
                                   ["--checkpoint", "ckpt"]])
 def test_unported_flags_refuse(flag):
     with pytest.raises(SystemExit, match="not ported yet"):
@@ -127,5 +192,9 @@ def test_profile_port_kernel_times():
         ("kernel", "(anonymous namespace)::compress_rows_kernel(float const*, int)", 20.0, 8.0),
         ("gpu_memcpy", "compress_rows_kernel staging", 30.0, 1.0),
     ]
-    assert port_kernel_times(intervals) == {"compress_rows_kernel": {"launches": 2, "us": 15.5}}
-    assert port_kernel_times([]) == {"compress_rows_kernel": {"launches": 0, "us": 0}}
+    intervals.append(("kernel", "(anonymous namespace)::compress_rows_dp_kernel(float const*)",
+                      40.0, 9.0))
+    assert port_kernel_times(intervals) == {"compress_rows_kernel": {"launches": 2, "us": 15.5},
+                                            "compress_rows_dp_kernel": {"launches": 1, "us": 9.0}}
+    assert port_kernel_times([]) == {"compress_rows_kernel": {"launches": 0, "us": 0},
+                                     "compress_rows_dp_kernel": {"launches": 0, "us": 0}}
