@@ -33,6 +33,24 @@ Phases, in order; any failure raises and the script exits nonzero:
      equals the unmasked one bit for bit;
   5. a {"kernels": [...]} summary line, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
+
+Serving (after phase 2b, 3c and 4b respectively):
+  2c. the flash-attention kernel against its plain PyTorch version on the
+     card: [8, 4096, 256] (gemma3-1b's prefill) with windows 0 and 1024,
+     [64, 4096, 64] (stablelm-1.6b's head_dim), a ragged [3, 2500, 128],
+     [5, 1000, 32], and bf16; within 2e-5 + 2e-5·|plain| in fp32 and
+     2e-2 + 2e-2·|plain| in bf16, with the kernel's, the plain version's
+     and F.scaled_dot_product_attention's times beside the bound;
+  3d. the serving path at full width: ``repro_torch.launch.serve`` with
+     --arch gemma3-1b --full --batch 2 --prompt-len 4096 --gen 32, the
+     launch counters zeroed just before and read just after: exactly 26
+     flash launches (one per layer of the one prefill group), 64 tokens in
+     [0, V), with prefill seconds, decode tokens/s, first-token latency,
+     executor counts and peak device memory;
+  4c. the card against the CPU on the serving path: gemma3-1b's smoke
+     widths with a 4096-token prompt (the card takes the flash kernel, the
+     CPU the blockwise twin): first-step logits within 1e-4 of the largest
+     |logit|, and equal greedy tokens from the engine.
 """
 from __future__ import annotations
 
@@ -52,6 +70,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch  # noqa: E402
 
 from repro_torch.common.backend import resolve_device  # noqa: E402
+from repro_torch.common.config import get_config  # noqa: E402
 from repro_torch.common.pytree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core import federation as F  # noqa: E402
 from repro_torch.core.baselines import make_runner  # noqa: E402
@@ -66,7 +85,13 @@ from repro_torch.core.controller import (  # noqa: E402
 from repro_torch.core.hsgd import exchange, init_state  # noqa: E402
 from repro_torch.kernels import build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.compress import fused_compress, stack_rows  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
+                                                 flash_attention_ref)
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.train import parse_args, run_ehealth, setup_ehealth  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 
 # Data-sheet rates, dense, at the full power limit: (memory B/s, fp32 FLOP/s
 # outside the tensor cores). Matched on the name nvidia-smi reports.
@@ -81,7 +106,24 @@ MAIN_ARGV = ["--model", "paper-cnn", "--dataset", "organamnist", "--algorithm", 
              "--p", "4", "--q", "2"]
 PRIVATE_ARGV = ["--dp-clip", "1", "--dp-sigma", "1", "--secure-agg"]
 ADAPTIVE_ARGV = ["--adaptive", "--dp-clip", "1", "--dp-sigma", "1", "--epsilon", "25"]
+# bf16 dense tensor-core rate, FLOP/s, matched as CARD_RATES is
+CARD_BF16_RATES = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12),
+                   ("H200", 989e12))
 MAIN_ROUNDS = 10
+# (name, BH, S, D, window, dtype); the first two are the serving path's
+FLASH_CASES = (
+    ("gemma3-1b prefill, global layer", 8, 4096, 256, 0, torch.float32),
+    ("gemma3-1b prefill, local layer", 8, 4096, 256, 1024, torch.float32),
+    ("stablelm-1.6b head_dim", 64, 4096, 64, 0, torch.float32),
+    ("ragged S", 3, 2500, 128, 0, torch.float32),
+    ("ragged S, window 700", 3, 2500, 128, 700, torch.float32),
+    ("head_dim 32, window 100", 5, 1000, 32, 100, torch.float32),
+    ("gemma3-1b prefill bf16, global layer", 8, 4096, 256, 0, torch.bfloat16),
+    ("gemma3-1b prefill bf16, local layer", 8, 4096, 256, 1024, torch.bfloat16),
+)
+SERVE_ARGV = ["--arch", "gemma3-1b", "--full", "--batch", "2", "--prompt-len", "4096",
+              "--gen", "32"]
+SERVE_PARITY_LEN, SERVE_PARITY_GEN = 4096, 8
 PARITY_ROUNDS = 2
 ADAPTIVE_PARITY_STEPS = 8
 
@@ -251,6 +293,105 @@ def check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops):
     return main_dp, max_err
 
 
+def flash_pairs(S: int, window: int) -> int:
+    """Unmasked (i, j) pairs of one [S, S] causal (windowed) score matrix."""
+    i = torch.arange(S, dtype=torch.int64) + 1
+    return int((torch.clamp(i, max=window) if window > 0 else i).sum())
+
+
+def flash_bound_ms(BH, S, D, window, dtype, bw, flops):
+    """Least time for one flash call: 4·D operations per unmasked pair at
+    the card's peak rate for the input type (fp32 outside the tensor cores;
+    bf16 on them), against q, k, v read once and the output written once.
+    Returns (bound_ms, bound_by)."""
+    elem = torch.finfo(dtype).bits // 8
+    t_bytes = 4 * BH * S * D * elem / bw * 1e3
+    t_ops = BH * flash_pairs(S, window) * 4 * D / flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_yardstick(q, k, v, window: int):
+    """F.scaled_dot_product_attention on the same function: causal for window
+    0, a boolean band mask otherwise. Timed here, never called by the port."""
+    q4, k4, v4 = (x.unsqueeze(0) for x in (q, k, v))
+    if window <= 0:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                                         is_causal=True)
+    pos = torch.arange(q.shape[1], device=q.device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=band)
+
+
+def check_flash_kernel(device, name):
+    """Phase 2c: the flash kernel against its plain version on every case,
+    timed beside the plain version, the library call and the bound. Returns
+    the comparison at the serving path's global-layer shape and the largest
+    fp32 difference at the serving path's shape."""
+    bw, flops32 = card_rates(name)
+    flops16 = next(r for key, r in CARD_BF16_RATES if key in name)
+    results = {}
+    for case, BH, S, D, window, dtype in FLASH_CASES:
+        g = torch.Generator(device=device).manual_seed(BH * S + D + window)
+        q, k, v = (torch.randn((BH, S, D), generator=g, device=device).to(dtype)
+                   for _ in range(3))
+        got = flash_attention_cuda(q, k, v, window=window)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, window=window)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == q.shape, f"flash {case}: output {got.dtype}")
+        err = (got.float() - want.float()).abs()
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        worst = float((err - tol * want.float().abs()).max())
+        check(worst <= tol, f"flash {case}: max |kernel - plain| - {tol}·|plain| = {worst} "
+                            f"over {tol} (max |diff| {float(err.max())})")
+        lib = sdpa_yardstick(q, k, v, window)
+        lib_err = float((lib()[0].float() - want.float()).abs().max())
+        ms = device_ms(lambda: flash_attention_cuda(q, k, v, window=window), inner=5, reps=7)
+        plain_ms = device_ms(lambda: flash_attention_ref(q, k, v, window=window), inner=2, reps=5)
+        library_ms = device_ms(lib, inner=5, reps=7)
+        bound, bound_by = flash_bound_ms(BH, S, D, window, dtype, bw,
+                                         flops32 if dtype == torch.float32 else flops16)
+        res = {"max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+        results[case] = res
+        print(f"[flash] {case}: shape=[{BH}, {S}, {D}] window={window} dtype={dtype} "
+              f"max_abs_err={res['max_abs_err']} (tol {tol} + {tol}·|plain|) kernel_ms={ms} "
+              f"plain_ms={plain_ms} library_ms={library_ms} (sdpa max_abs_err {lib_err}) "
+              f"bound_ms={bound} ({bound_by}) kernel/bound={ms / bound}")
+        del q, k, v, got, want, err
+    main_err = max(results[c[0]]["max_abs_err"] for c in FLASH_CASES[:2])
+    return results[FLASH_CASES[0][0]], main_err
+
+
+def run_serve_cli(argv):
+    """``repro_torch.launch.serve`` on ``argv``: (report, tokens)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report, tokens = serve.run(serve.parse_args(argv))
+    print(f"[serve] {json.dumps(report)}")
+    return report, tokens
+
+
+def serve_parity(*devices):
+    """gemma3-1b smoke widths, one 4096-token prompt pair: (first-step
+    logits [B, V] on the CPU, greedy engine tokens) per device, from the
+    same CPU-drawn params."""
+    cfg = get_config("gemma3-1b", smoke=True)
+    params0 = L.init_params(T.model_specs(cfg), torch.Generator().manual_seed(0))
+    prompts = serve.build_inputs(cfg, 2, SERVE_PARITY_LEN, seed=0)[1]
+    out = []
+    for dev in devices:
+        params = tree_map(lambda t: t.to(dev), params0)
+        caches = T.init_decode_caches(cfg, 2, SERVE_PARITY_LEN, torch.float32, dev)
+        logits, _ = T.decode_step(cfg, params, torch.from_numpy(prompts).to(dev), caches, 0,
+                                  fresh_cache=True)
+        engine = ServeEngine(cfg, params, max_batch=2, cache_dtype=torch.float32,
+                             decode_block=4)
+        toks, _ = engine.generate(list(prompts), SERVE_PARITY_GEN)
+        out.append((logits[:, -1].cpu(), toks))
+    return out
+
+
 def run_cli(argv):
     """``run_ehealth`` on ``argv``, its stdout echoed: (metrics, losses, the
     (P, rung) of each ``[adaptive] round`` line)."""
@@ -402,6 +543,9 @@ def main() -> int:
     # -- phase 2b: the DP kernel against plain, bit for bit ------------------
     main_dp, max_err_dp = check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops)
 
+    # -- phase 2c: the flash-attention kernel against plain ------------------
+    flash_main, max_err_flash = check_flash_kernel(device, name)
+
     # -- phase 3: the main path -------------------------------------------
     args = parse_args(MAIN_ARGV + ["--device", "cuda", "--rounds", str(MAIN_ROUNDS)])
     reset_launch_counts()
@@ -463,6 +607,23 @@ def main() -> int:
     check(all(math.isfinite(float(v)) for v in losses) and last < first,
           f"adaptive loss did not fall: first-4 mean {first}, last-4 mean {last}")
 
+    # -- phase 3d: the serving path at full width -----------------------------
+    reset_launch_counts()
+    report, tokens = run_serve_cli(SERVE_ARGV)
+    torch.cuda.synchronize()
+    counts_serve = dict(launch_counts)
+    vocab = get_config("gemma3-1b").vocab_size
+    print(f"[serve] launches={counts_serve} prefill_s={report['prefill_s']} "
+          f"decode_tok_per_s={report['decode_tok_per_s']} first_token_s="
+          f"{[r['first_token_s'] for r in report['requests']]} "
+          f"executors={report['compiled_executors']} "
+          f"peak_device_GiB={report['peak_device_bytes'] / 2 ** 30}")
+    check(counts_serve == {"flash_attention": 26},
+          f"serving path launches {counts_serve}, expected 26 flash launches and no other")
+    check(report["generated_tokens"] == 2 * 32, f"generated {report['generated_tokens']} tokens")
+    check(len(tokens) == 2 and all(len(t) == 32 and all(0 <= x < vocab for x in t)
+                                   for t in tokens), "serving tokens out of [0, V)")
+
     # -- phase 4: the card against the CPU ---------------------------------
     on_cpu, on_card = same_start_losses(torch.device("cpu"), device)
     rel = float(((on_card - on_cpu).abs() / on_cpu.abs()).max())
@@ -484,6 +645,16 @@ def main() -> int:
     check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
           f"adaptive path: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
     check_ring_on_card(device)
+
+    # -- phase 4c: the card against the CPU on the serving path -------------
+    reset_launch_counts()
+    (lg_cpu, tok_cpu), (lg_card, tok_card) = serve_parity(torch.device("cpu"), device)
+    rel = float((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max())
+    print(f"[parity-serve] flash launches on the card={launch_counts['flash_attention']} "
+          f"logits max |card - cpu| / max |cpu| = {rel} tokens cpu={tok_cpu} cuda={tok_card}")
+    check(launch_counts["flash_attention"] > 0, "the card's serving parity run skipped the kernel")
+    check(rel <= 1e-4, f"serving path: first-step logits differ by {rel} relative (> 1e-4)")
+    check(tok_card == tok_cpu, "serving path: card and CPU greedy tokens differ")
 
     # -- phase 5: summary ----------------------------------------------------
     kernels = [{
@@ -510,6 +681,18 @@ def main() -> int:
         "bound_ms": main_dp["bound_ms"],
         "bound_by": main_dp["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": counts_serve["flash_attention"],
+        "max_abs_err": max_err_flash,
+        "ms": flash_main["ms"],
+        "plain_ms": flash_main["plain_ms"],
+        "bound_ms": flash_main["bound_ms"],
+        "bound_by": flash_main["bound_by"],
+        "library_ms": flash_main["library_ms"],
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

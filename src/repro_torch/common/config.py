@@ -1,13 +1,162 @@
-"""Federation / training configuration (the paper's hyper-parameters).
+"""Model configs with their registry, and the federation / training
+configuration (the paper's hyper-parameters).
 
-Same fields, defaults and validation errors as ``repro/common/config.py``;
-the LLM ``ModelConfig`` registry comes with the LLM slice.
+Same fields, defaults and validation errors as ``repro/common/config.py``.
+The registry holds the dense architectures the port runs
+(``repro_torch/configs``); the reference's other architectures raise "not
+ported yet".
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Tuple
+
+# ---------------------------------------------------------------------------
+# Model configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description (all the reference's fields; the port runs
+    the dense family)."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm | cnn | lstm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    # --- attention flavour ---
+    attention: str = "gqa"  # gqa | mla | none
+    sliding_window: int = 0  # 0 -> full attention
+    local_global_ratio: int = 0  # gemma3: 5 local per 1 global
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE (t, h, w) splits
+    # --- MLA (deepseek) ---
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # --- MLP flavour ---
+    mlp: str = "swiglu"  # swiglu | geglu | squared_relu | gelu
+    # --- MoE ---
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0  # expert hidden size if != d_ff
+    first_dense_layers: int = 0  # deepseek: first k layers dense
+    # --- SSM (mamba) ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_version: int = 1  # 1 = mamba1 (falcon-mamba), 2 = mamba2 (zamba2)
+    ssm_headdim: int = 64  # mamba2 head dim
+    hybrid_attn_every: int = 0  # zamba2: shared attention block period
+    # --- structure ---
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq: int = 0  # stubbed frontend sequence length (whisper frames / ViT patches)
+    frontend: str = ""  # "audio" | "vision" stub marker
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    tie_embeddings: bool = True
+    max_seq_len: int = 131072
+    dtype: str = "bfloat16"
+    # provenance
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's formula, all families)."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        hd = self.resolved_head_dim
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        attn = 0
+        if self.attention == "gqa" and self.num_heads:
+            attn = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd + self.num_heads * hd * d
+        elif self.attention == "mla":
+            attn = d * self.q_lora_rank + self.q_lora_rank * self.num_heads * (hd + self.qk_rope_head_dim)
+            attn += d * (self.kv_lora_rank + self.qk_rope_head_dim)
+            attn += self.kv_lora_rank * self.num_heads * (hd + self.v_head_dim)
+            attn += self.num_heads * self.v_head_dim * d
+        if self.family != "hybrid":
+            per_layer += attn
+        if self.family in ("ssm", "hybrid"):
+            d_in = self.ssm_expand * d
+            N = self.ssm_state
+            if self.ssm_version == 1:
+                dt_rank = max(1, d // 16)
+                per_layer += d * 2 * d_in + d_in * (2 * N + dt_rank) + dt_rank * d_in
+            else:
+                H = d_in // max(self.ssm_headdim, 1)
+                per_layer += d * (2 * d_in + 2 * N + H)
+            per_layer += d_in * self.ssm_conv + d_in * d
+        mults = 3 if self.mlp in ("swiglu", "geglu") else 2
+        if self.num_experts > 0:
+            eff = self.moe_d_ff or self.d_ff
+            per_layer += self.num_experts * mults * d * eff
+            per_layer += self.num_shared_experts * mults * d * eff
+            per_layer += d * self.num_experts  # router
+        elif self.d_ff > 0 and self.family != "hybrid":
+            per_layer += mults * d * self.d_ff
+        per_layer += 2 * d  # norms
+        total = emb + L * per_layer
+        if self.family == "hybrid":
+            total += attn + mults * d * self.d_ff  # the one shared attention+mlp block
+        if self.is_encoder_decoder:
+            total += self.encoder_layers * per_layer + L * per_layer
+        return int(total)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+_SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+# the reference's architectures that the port does not run yet
+UNPORTED_ARCHS = ("deepseek-v3-671b", "falcon-mamba-7b", "gemma3-4b", "grok-1-314b",
+                  "nemotron-4-15b", "qwen2-vl-72b", "whisper-medium", "zamba2-2.7b",
+                  "paper-cnn", "paper-lstm")
+
+
+def register_config(name: str, full: Callable[[], ModelConfig], smoke: Callable[[], ModelConfig]):
+    _REGISTRY[name] = full
+    _SMOKE_REGISTRY[name] = smoke
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    import repro_torch.configs  # noqa: F401  (triggers registration)
+
+    reg = _SMOKE_REGISTRY if smoke else _REGISTRY
+    if name in UNPORTED_ARCHS:
+        raise KeyError(f"arch '{name}' is not ported yet; ported: {sorted(reg)}")
+    if name not in reg:
+        raise KeyError(f"unknown arch '{name}'; known: {sorted(reg)}")
+    return reg[name]()
+
+
+def list_configs():
+    import repro_torch.configs  # noqa: F401
+
+    return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# Federation / training configuration (the paper's hyper-parameters)
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

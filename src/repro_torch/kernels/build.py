@@ -7,8 +7,10 @@ by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused.
 
 Flags: ``sm_90a`` (Hopper, with its ``wgmma``/``setmaxnreg`` target), and
-``--fmad=false`` with no fast math, so that each kernel rounds exactly as
-its plain PyTorch version does.
+``--fmad=false`` with no fast math, so that the compress kernels round
+exactly as their plain PyTorch version does. The flash-attention kernel,
+held to a tolerance instead, asks for its fused multiply-adds explicitly
+(``fmaf``), which the flag leaves alone.
 """
 from __future__ import annotations
 
@@ -36,6 +38,10 @@ SIGNATURES = {
     "compress": {
         "compress_rows_f32": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
         "compress_rows_dp_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention": {
+        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }

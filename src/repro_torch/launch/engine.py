@@ -1,0 +1,470 @@
+"""Serving engine: single-pass prefill, blocked decode, continuous batching.
+
+The trained global model θ̃ is what e-health institutions serve back to
+devices and clinicians. This is the port of ``repro/launch/engine.py`` for
+the dense family. Its executors are Python closures cached per shape
+bucket under the reference's keys, as the reference caches one jitted
+program per bucket; ``compile_counts`` reports the caches' sizes under the
+reference's names.
+
+* **prefill** — ONE forward per power-of-two token block, writing every
+  layer's KV cache in place (``decode_hidden`` on [B, S] tokens). The first
+  block of a prompt builds its own caches and attends within itself
+  (``fresh_cache``); when it is longer than ``BLOCKWISE_THRESHOLD`` (2048)
+  its attention goes through the hand-written flash kernel on the card.
+  Only the block's last position is unembedded: the engine samples from it
+  alone, and at gemma3's V = 262144 the full [B, S, V] logits of a 4096
+  token block would take 8.6 GB.
+* **decode** — ``decode_block`` steps with on-device sampling and per-slot
+  cache write positions (parked slots write at ``cache_len``, which the
+  cache write drops), with ONE host sync per block, when the scheduler
+  collects the block's tokens.
+* **insert** — continuous batching: one executor copies a prefilled
+  group's cache rows into freed decode slots; pad rows carry
+  ``dst == max_batch`` and are dropped.
+
+Sampling is greedy ``argmax`` at temperature 0; otherwise it draws on the
+device from one ``torch.Generator`` seeded from ``seed``, so two engines
+with the same seed give the same tokens (not the reference's: the RNGs
+differ). Self-speculative decoding (``spec_gamma``) and the prefix cache
+are not ported yet and raise.
+
+``sequential_generate`` / ``sequential_prefill`` / ``sequential_decode``
+keep the token-by-token path (one forward and one host sample per token)
+as the parity oracle.
+"""
+from __future__ import annotations
+
+import time
+from collections import Counter
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common.buckets import pow2_ceil as _pow2_at_least
+from repro_torch.common.buckets import pow2_floor as _pow2_at_most
+from repro_torch.common.config import ModelConfig
+from repro_torch.models import transformer as T
+
+CACHE_DTYPES = {
+    "int8": torch.int8,
+    "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+    "f16": torch.float16, "float16": torch.float16,
+    "f32": torch.float32, "float32": torch.float32,
+}
+EXECUTOR_KINDS = ("prefill", "decode", "insert", "spec", "harvest")
+
+
+def parse_cache_dtype(value):
+    """CLI string (or torch dtype) -> cache dtype, failing FAST with the list
+    of supported names instead of deep inside cache init."""
+    if not isinstance(value, str):
+        return value
+    try:
+        return CACHE_DTYPES[value.lower()]
+    except KeyError:
+        raise ValueError(
+            f"unsupported cache dtype {value!r}; choose one of "
+            f"{sorted(CACHE_DTYPES)}"
+        ) from None
+
+
+def sample_token(logits, generator: Optional[torch.Generator], temperature: float):
+    """[B, V] logits -> [B] int32 next tokens, on the logits' device.
+
+    Greedy ``argmax`` at temperature 0; otherwise a categorical draw from
+    softmax(logits / temperature) with ``generator``.
+    """
+    if temperature > 0:
+        probs = torch.softmax(logits.float() / max(float(temperature), 1e-6), dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Requests + engine
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # [S] int32
+    max_new: int
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+    prefill_s: float = 0.0
+    tokens: List[int] = field(default_factory=list)
+    slot: int = -1
+
+    @property
+    def finished(self) -> bool:
+        return len(self.tokens) >= self.max_new
+
+
+class ServeEngine:
+    """Continuous-batching scheduler over the cached executors.
+
+    Requests are packed into a padded decode batch of ``max_batch`` slots
+    sharing one power-of-two cache bucket; freed slots are refilled from the
+    waiting queue while the batch keeps decoding. Per-request latency and
+    aggregate tokens/s come back from :meth:`run`. The device is the
+    parameters' device.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
+                 cache_dtype=torch.bfloat16, decode_block: int = 8,
+                 temperature: float = 0.0, seed: int = 0,
+                 max_prefill_block: int = 4096, spec_gamma: int = 0,
+                 prefix_cache: bool = False):
+        T.model_specs(cfg)  # raises for a family that is not ported yet
+        if int(spec_gamma):
+            raise NotImplementedError("self-speculative decoding (spec_gamma) is not ported yet")
+        if prefix_cache:
+            raise NotImplementedError("the prefix cache is not ported yet")
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"]["table"].device
+        self.max_batch = int(max_batch)
+        self.cache_dtype = parse_cache_dtype(cache_dtype)
+        self.decode_block = int(decode_block)
+        self.temperature = float(temperature)
+        self.max_prefill_block = int(max_prefill_block)
+        self.spec_gamma = 0  # speculative decoding: not ported yet
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        self._prefill_fns: Dict = {}  # (Bp, block, first, cache_len) -> executor
+        self._decode_fns: Dict = {}  # (B, cache_len, block) -> executor
+        self._insert_fns: Dict = {}  # (Bp, B, cache_len) -> executor
+        self._builds: Counter = Counter()  # executors built, by kind
+        self._next_rid = 0
+        self.waiting: List[Request] = []
+        self.done: List[Request] = []
+        self._state = None  # live decode batch: caches + host tok/pos/active
+        self._cache_len = 0
+        self._slots: List[Optional[Request]] = []
+
+    # -- submission ---------------------------------------------------------
+
+    def submit(self, prompt, max_new: int) -> int:
+        r = Request(self._next_rid, np.asarray(prompt, np.int32), int(max_new),
+                    t_submit=time.perf_counter())
+        self._next_rid += 1
+        self.waiting.append(r)
+        return r.rid
+
+    def generate(self, prompts, max_new: int):
+        """Submit a batch, drain it, return (tokens per request, report)."""
+        rids = [self.submit(p, max_new) for p in prompts]
+        report = self.run()
+        by_id = {r.rid: r for r in self.done}
+        return [by_id[rid].tokens for rid in rids], report
+
+    # -- executors (cached per shape bucket) --------------------------------
+
+    def _prefill_fn(self, Bp: int, block: int, first: bool, cache_len: int):
+        key = (Bp, block, first, cache_len)
+        fn = self._prefill_fns.get(key)
+        if fn is None:
+            cfg, dtype, device, gen = self.cfg, self.cache_dtype, self.device, self.generator
+            self._builds["prefill"] += 1
+            if first:
+                # the FIRST block builds its own zero caches and attends
+                # within itself (fresh_cache): the flash kernel's route
+                def serve_prefill_first(params, tokens, temperature):
+                    caches = T.init_decode_caches(cfg, Bp, cache_len, dtype, device)
+                    hidden, caches = T.decode_hidden(cfg, params, tokens, caches, 0,
+                                                     fresh_cache=True)
+                    logits = T.logits_from_hidden(cfg, params, hidden[:, -1])
+                    return sample_token(logits, gen, temperature), caches
+
+                fn = serve_prefill_first
+            else:
+
+                def serve_prefill(params, caches, tokens, index, temperature):
+                    hidden, caches = T.decode_hidden(cfg, params, tokens, caches, index)
+                    logits = T.logits_from_hidden(cfg, params, hidden[:, -1])
+                    return sample_token(logits, gen, temperature), caches
+
+                fn = serve_prefill
+            self._prefill_fns[key] = fn
+        return fn
+
+    def _decode_fn(self, B: int, cache_len: int, block: int):
+        key = (B, cache_len, block)
+        fn = self._decode_fns.get(key)
+        if fn is None:
+            cfg, gen = self.cfg, self.generator
+            self._builds["decode"] += 1
+
+            def serve_decode(params, caches, tok, pos, active, temperature):
+                toks = []
+                for _ in range(block):
+                    # parked slots write at cache_len: out of range -> dropped
+                    widx = torch.where(active, pos, cache_len)
+                    logits, caches = T.decode_step(cfg, params, tok, caches, widx)
+                    nxt = sample_token(logits[:, -1], gen, temperature)
+                    tok, pos = nxt[:, None], pos + 1
+                    toks.append(nxt)
+                return caches, torch.stack(toks)  # toks: [block, B]
+
+            fn = self._decode_fns[key] = serve_decode
+        return fn
+
+    def _insert_fn(self, Bp: int):
+        key = (Bp, self.max_batch, self._cache_len)
+        fn = self._insert_fns.get(key)
+        if fn is None:
+            bx = self._batch_axes(self.max_batch, self._cache_len)
+            max_batch, device = self.max_batch, self.device
+            self._builds["insert"] += 1
+
+            # ONE call admits the whole prefilled group: row i of the prefill
+            # caches lands in decode slot dst[i]; prefill pad rows carry
+            # dst == max_batch (out of range) and are dropped
+            def serve_insert(dec_caches, pre_caches, dst):
+                keep = np.flatnonzero(np.asarray(dst) < max_batch)
+                src = torch.as_tensor(keep, dtype=torch.long, device=device)
+                to = torch.as_tensor(np.asarray(dst)[keep], dtype=torch.long, device=device)
+                for d, p, ax in zip(dec_caches["kv"], pre_caches["kv"], bx["kv"]):
+                    d.index_copy_(ax, to, p.index_select(ax, src).to(d.dtype))
+                return dec_caches
+
+            fn = self._insert_fns[key] = serve_insert
+        return fn
+
+    def _cache_axis(self, B: int, cache_len: int, name: str):
+        """Which axis of each cache leaf carries logical axis ``name`` (the
+        leaves are layer-stacked, so it is NOT 0)."""
+        _, axes = T.make_decode_caches(self.cfg, B, cache_len, self.cache_dtype)
+        return {k: tuple(a.index(name) for a in v) for k, v in axes.items()}
+
+    def _batch_axes(self, B: int, cache_len: int):
+        return self._cache_axis(B, cache_len, "batch")
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Executor-cache sizes and executors built, under the reference's
+        names (they must agree: one executor per bucket)."""
+        sizes = {"prefill": len(self._prefill_fns), "decode": len(self._decode_fns),
+                 "insert": len(self._insert_fns), "spec": 0, "harvest": 0}
+        out = {}
+        for kind in EXECUTOR_KINDS:
+            out[f"{kind}_buckets"] = sizes[kind]
+            out[f"{kind}_compiles"] = self._builds[kind]
+        return out
+
+    # -- prefill ------------------------------------------------------------
+
+    def _prefill_group(self, group: List[Request], cache_len: int):
+        """Single-pass prefill for same-length requests.
+
+        Returns (sampled first token [Bp] device tensor, caches)."""
+        S = group[0].prompt.shape[0]
+        Bp = _pow2_at_least(len(group))
+        toks = np.zeros((Bp, S), np.int32)
+        for i, r in enumerate(group):
+            toks[i] = r.prompt
+        toks[len(group):] = toks[0]  # pad rows replay request 0; discarded
+        toks_dev = torch.from_numpy(toks).to(self.device)
+        idx, tok, caches = 0, None, None
+        while idx < S:
+            blk = min(_pow2_at_most(S - idx), self.max_prefill_block)
+            first = caches is None
+            fn = self._prefill_fn(Bp, blk, first, cache_len)
+            tb = toks_dev[:, idx: idx + blk]
+            if first:
+                tok, caches = fn(self.params, tb, self.temperature)
+            else:
+                tok, caches = fn(self.params, caches, tb, idx, self.temperature)
+            idx += blk
+        return tok, caches
+
+    # -- scheduling ---------------------------------------------------------
+
+    def _required_cache_len(self, r: Request) -> int:
+        return _pow2_at_least(r.prompt.shape[0] + r.max_new + self.spec_gamma)
+
+    def _active_any(self) -> bool:
+        return any(s is not None for s in self._slots)
+
+    def _ensure_state(self, cache_len: int) -> None:
+        if self._state is not None and self._cache_len == cache_len:
+            return
+        B = self.max_batch
+        self._cache_len = cache_len
+        self._state = {
+            "caches": T.init_decode_caches(self.cfg, B, cache_len, self.cache_dtype,
+                                           self.device),
+            "tok": np.zeros((B, 1), np.int32),
+            "pos": np.zeros((B,), np.int32),
+            "active": np.zeros((B,), bool),
+        }
+        self._slots = [None] * B
+
+    def _finish(self, r: Request, now: float) -> None:
+        r.t_done = now
+        self.done.append(r)
+        if r.slot >= 0:
+            self._slots[r.slot] = None
+            self._state["active"][r.slot] = False
+            r.slot = -1
+
+    def _admit(self) -> None:
+        if not self.waiting:
+            return
+        if self._state is None or not self._active_any():
+            # empty batch: (re)size the cache bucket for the waiting set
+            need = max(self._required_cache_len(r) for r in self.waiting)
+            self._ensure_state(max(need, self._cache_len))
+        free = [i for i, s in enumerate(self._slots) if s is None]
+        fitting = [r for r in self.waiting
+                   if self._required_cache_len(r) <= self._cache_len]
+        if not free or not fitting:
+            return
+        # one same-length group per admission: they share ONE prefill pass
+        S0 = fitting[0].prompt.shape[0]
+        group = [r for r in fitting if r.prompt.shape[0] == S0][: len(free)]
+        for r in group:
+            self.waiting.remove(r)
+        t0 = time.perf_counter()
+        first_tok, pre_caches = self._prefill_group(group, self._cache_len)
+        Bp = first_tok.shape[0]
+        first = first_tok.cpu().numpy()  # the one prefill host sync
+        st = self._state
+        t1 = time.perf_counter()
+        dst = np.full((Bp,), self.max_batch, np.int32)  # pad rows: dropped
+        dst[: len(group)] = free[: len(group)]
+        st["caches"] = self._insert_fn(Bp)(st["caches"], pre_caches, dst)
+        for i, r in enumerate(group):
+            slot = free[i]
+            r.slot = slot
+            r.t_admit, r.t_first, r.prefill_s = t0, t1, t1 - t0
+            r.tokens.append(int(first[i]))
+            self._slots[slot] = r
+            st["tok"][slot, 0] = first[i]
+            st["pos"][slot] = r.prompt.shape[0]
+            st["active"][slot] = True
+            if r.finished:  # max_new == 1: done at the prefill sample
+                self._finish(r, t1)
+
+    def _decode_block_run(self) -> None:
+        st = self._state
+        fn = self._decode_fn(self.max_batch, self._cache_len, self.decode_block)
+        dev = self.device
+        st["caches"], toks = fn(
+            self.params, st["caches"], torch.from_numpy(st["tok"]).to(dev),
+            torch.from_numpy(st["pos"]).to(dev), torch.from_numpy(st["active"]).to(dev),
+            self.temperature)
+        toks_np = toks.cpu().numpy()  # the ONE host sync for this block
+        # every slot's position advanced by the block, parked ones too
+        st["tok"] = toks_np[-1][:, None].copy()
+        st["pos"] = st["pos"] + self.decode_block
+        now = time.perf_counter()
+        for b in range(toks_np.shape[0]):
+            for r in list(self._slots):
+                if r is None or r.finished:
+                    continue
+                r.tokens.append(int(toks_np[b, r.slot]))
+                if r.finished:
+                    self._finish(r, now)
+
+    # -- public driving API --------------------------------------------------
+
+    def pending(self) -> int:
+        """Requests not yet finished: queued + occupying a decode slot."""
+        return len(self.waiting) + sum(1 for s in self._slots if s is not None)
+
+    def step(self) -> None:
+        """ONE scheduler tick: admit whatever fits, then run one decode block."""
+        self._admit()
+        if self._state is not None and self._active_any():
+            self._decode_block_run()
+
+    def run(self) -> Dict:
+        """Drain the queue; reports the requests finished during THIS run."""
+        t_start = time.perf_counter()
+        done_before = len(self.done)
+        while self.pending():
+            self.step()
+        return self.report(time.perf_counter() - t_start, self.done[done_before:])
+
+    def report(self, wall_s: float, requests: Optional[List[Request]] = None) -> Dict:
+        reqs, gen_total = [], 0
+        for r in sorted(self.done if requests is None else requests, key=lambda r: r.rid):
+            gen_total += len(r.tokens)
+            reqs.append({
+                "id": r.rid,
+                "prompt_len": int(r.prompt.shape[0]),
+                "new_tokens": len(r.tokens),
+                "queue_s": round(r.t_admit - r.t_submit, 6),
+                "prefill_s": round(r.prefill_s, 6),
+                "first_token_s": round(r.t_first - r.t_submit, 6),
+                "total_s": round(r.t_done - r.t_submit, 6),
+            })
+        return {
+            "requests": reqs,
+            "wall_s": round(wall_s, 6),
+            "generated_tokens": gen_total,
+            "tokens_per_s": round(gen_total / max(wall_s, 1e-9), 1),
+            "compiled_executors": self.compile_counts(),
+        }
+
+
+# ---------------------------------------------------------------------------
+# Token-by-token serving path (the parity oracle)
+# ---------------------------------------------------------------------------
+
+
+def sequential_step_fn(cfg: ModelConfig):
+    """The per-token step; shared across repeated ``sequential_*`` calls."""
+    return lambda p, t, c, i: T.decode_step(cfg, p, t, c, i)
+
+
+def _as_tokens(prompts, device):
+    return torch.as_tensor(np.asarray(prompts, np.int32), device=device)
+
+
+def sequential_prefill(cfg: ModelConfig, params, prompts, cache_len: int,
+                       cache_dtype=torch.float32, step=None):
+    """Token-by-token prefill through ``decode_step`` (S forwards)."""
+    device = params["embed"]["table"].device
+    prompts = _as_tokens(prompts, device)
+    B, S = prompts.shape
+    caches = T.init_decode_caches(cfg, B, cache_len, parse_cache_dtype(cache_dtype), device)
+    step = step or sequential_step_fn(cfg)
+    logits = None
+    for i in range(S):
+        logits, caches = step(params, prompts[:, i: i + 1], caches, i)
+    return logits, caches
+
+
+def sequential_decode(cfg: ModelConfig, params, logits, caches, start_pos: int,
+                      gen: int, temperature: float = 0.0, seed: int = 0, step=None):
+    """The per-token decode loop, continuing from prefilled (logits, caches):
+    one forward and one host-side token per step."""
+    generator = torch.Generator(device=logits.device).manual_seed(int(seed))
+    step = step or sequential_step_fn(cfg)
+    out = []
+    tok = None
+    for i in range(gen):
+        if i > 0:
+            logits, caches = step(params, tok, caches, start_pos + i - 1)
+        tok = sample_token(logits[:, -1], generator, temperature)[:, None]
+        out.append(tok.cpu())
+    return torch.cat(out, dim=1)
+
+
+def sequential_generate(cfg: ModelConfig, params, prompts, gen: int,
+                        temperature: float = 0.0, seed: int = 0,
+                        cache_dtype=torch.float32, cache_len: Optional[int] = None,
+                        step=None):
+    """Token-by-token prefill and decode: [B, gen] int32 tokens on the CPU."""
+    B, S = np.asarray(prompts).shape
+    cache_len = cache_len or (S + gen)
+    step = step or sequential_step_fn(cfg)
+    logits, caches = sequential_prefill(cfg, params, prompts, cache_len, cache_dtype,
+                                        step=step)
+    return sequential_decode(cfg, params, logits, caches, S, gen, temperature, seed, step=step)

@@ -1,0 +1,313 @@
+"""Attention: GQA/MHA, sliding window, blockwise, KV cache (``repro/models/attention.py``).
+
+Blockwise (online-softmax) attention is the plain twin of the flash kernel
+and runs whenever the score matrix would not fit memory; dense einsum
+attention runs for short sequences. Decode paths attend one query token (or
+a short block) against the cached K/V.
+
+Caches are written IN PLACE (the reference donates them to its executors):
+``_cache_write`` and ``_write_kv_cache`` update the cache tensors they are
+given and return them. MLA (DeepSeek latent attention) comes with the MoE
+family and raises "not ported yet".
+"""
+from __future__ import annotations
+
+from collections import namedtuple
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.quant import dequantize_rows, is_int8, quantize_rows
+
+NEG_INF = -2.0e38
+INT32_MAX = 2 ** 31 - 1
+# shape and dtype of one cache leaf (the port's ShapeDtypeStruct)
+CacheSpec = namedtuple("CacheSpec", "shape dtype")
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+
+def gqa_specs(cfg: ModelConfig) -> Dict[str, L.Spec]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    s = {
+        "wq": L.Spec((d, cfg.num_heads, hd), ("embed", "heads", "head_dim")),
+        "wk": L.Spec((d, cfg.num_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": L.Spec((d, cfg.num_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": L.Spec((cfg.num_heads, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = L.Spec((hd,), ("head_dim",), "ones")
+        s["k_norm"] = L.Spec((hd,), ("head_dim",), "ones")
+    return s
+
+
+def mla_specs(cfg: ModelConfig):
+    raise NotImplementedError("MLA attention is not ported yet")
+
+
+def mla_forward(*args, **kw):
+    raise NotImplementedError("MLA attention is not ported yet")
+
+
+def attention_specs(cfg: ModelConfig) -> Dict[str, L.Spec]:
+    return mla_specs(cfg) if cfg.attention == "mla" else gqa_specs(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Masking
+# ---------------------------------------------------------------------------
+
+
+def _window_ok(q_pos_col, k_pos_row, window: int):
+    """Boolean band mask; ``window`` <= 0 means full causal attention."""
+    in_window = k_pos_row > (q_pos_col - int(window))
+    return in_window if int(window) > 0 else torch.ones_like(in_window)
+
+
+def causal_mask_bias(q_pos, k_pos, window: int = 0):
+    """Additive bias [..., Sq, Sk]; window > 0 adds a sliding-window band."""
+    ok = k_pos[..., None, :] <= q_pos[..., :, None]
+    ok = ok & _window_ok(q_pos[..., :, None], k_pos[..., None, :], window)
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+
+def _sdpa(q, k, v, bias, scale):
+    """q:[B,Sq,H,D] k,v:[B,Sk,KH,D] -> [B,Sq,H,D]; bias:[B?,Sq,Sk] additive."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, Sq, KH, G, D)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    scores = scores + (bias[:, None, None] if bias.dim() == 3 else bias)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _blockwise_sdpa(q, k, v, q_pos, k_pos, scale, window: int, kv_block: int = 1024):
+    """Online-softmax attention over KV blocks (flash-style, plain torch).
+
+    Memory O(Sq * kv_block) instead of O(Sq * Sk).
+    """
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    nblk = (Sk + kv_block - 1) // kv_block
+    pad = nblk * kv_block - Sk
+    if pad:
+        k = torch.cat([k, k.new_zeros((B, pad) + tuple(k.shape[2:]))], dim=1)
+        v = torch.cat([v, v.new_zeros((B, pad) + tuple(v.shape[2:]))], dim=1)
+        k_pos = torch.cat([k_pos, k_pos.new_full((B, pad), INT32_MAX)], dim=1)
+    qg = (q * scale).reshape(B, Sq, KH, G, D).float()
+    qp = q_pos[:, None, None, :, None]
+    m = torch.full((B, KH, G, Sq), NEG_INF, device=q.device)
+    l = torch.zeros((B, KH, G, Sq), device=q.device)
+    acc = torch.zeros((B, KH, G, Sq, D), device=q.device)
+    for i in range(nblk):
+        blk = slice(i * kv_block, (i + 1) * kv_block)
+        kc, vc, pc = k[:, blk], v[:, blk], k_pos[:, blk][:, None, None, None, :]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.float())
+        ok = (pc <= qp) & _window_ok(qp, pc, window)
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vc.float())
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA forward (train/prefill and decode)
+# ---------------------------------------------------------------------------
+
+BLOCKWISE_THRESHOLD = 2048  # use online-softmax above this Sk (memory roofline)
+
+
+def _long_prefill_attention(q, k, v, positions, scale, window: int):
+    """Attention for a long contiguous SERVING prefill block at position 0.
+
+    A CUDA tensor goes to the hand-written flash kernel
+    (``kernels/ops.py::flash_attention``), with K and V repeated to the
+    query heads here, as the reference does; a CPU tensor goes to the plain
+    online-softmax twin, as the reference does off-TPU. The routing depends
+    on the tensors' device only. Inference-only: the kernel has no backward.
+    """
+    if q.device.type == "cuda":
+        from repro_torch.kernels.ops import flash_attention
+
+        G = q.shape[2] // k.shape[2]
+        kr = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
+        vr = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
+        return flash_attention(q, kr, vr, scale=scale, window=window)
+    return _blockwise_sdpa(q, k, v, positions, positions, scale, window)
+
+
+def _cache_write(cache, update, index):
+    """Write ``update`` into ``cache`` at ``index`` along axis 1, in place.
+
+    A scalar index writes a contiguous [B, S, ...] span at the start
+    ``lax.dynamic_update_slice`` would use: clamped into [0, cache_len - S],
+    so the span always fits. An int32 [B] vector writes S tokens per batch
+    row starting at per-slot positions (continuous batching); columns at or
+    past ``cache_len`` are DROPPED, as the reference's ``mode="drop"``
+    scatter drops them, which lets the serving engine park inactive slots
+    at ``cache_len``; a negative column wraps, as jnp's does. The vector write
+    needs no host sync: each column is written as ``where(valid, update,
+    current)`` at a clamped column, one column after the other, so a dropped
+    column rewrites the value a valid one has just put there.
+    """
+    S = update.shape[1]
+    upd = update.to(cache.dtype)
+    if isinstance(index, torch.Tensor) and index.dim() == 1:
+        B, Lc = cache.shape[0], cache.shape[1]
+        rows = torch.arange(B, device=cache.device)
+        keep_shape = (B,) + (1,) * (cache.dim() - 2)
+        for s in range(S):
+            col = index.to(device=cache.device, dtype=torch.int64) + s
+            c = torch.clamp(col, max=Lc - 1)
+            keep = (col < Lc).view(keep_shape)
+            cache[rows, c] = torch.where(keep, upd[:, s], cache[rows, c])
+        return cache
+    start = min(max(int(index), 0), cache.shape[1] - S)
+    cache[:, start:start + S] = upd
+    return cache
+
+
+def _write_kv_cache(kv_cache, k, v, positions, index):
+    """Write (k, v, positions) into the cache; return it plus read views.
+
+    A 3-tuple cache is full precision. A 5-tuple is the int8 layout
+    ``(k_codes, v_codes, k_scale, v_scale, pos)``: the update rows are
+    quantized per (batch, position, kv_head) row before the write, and the
+    read views are dequantized copies.
+    """
+    if len(kv_cache) == 5:
+        ck, cv, cks, cvs, cpos = kv_cache
+        kq, ksc = quantize_rows(k)
+        vq, vsc = quantize_rows(v)
+        ck, cks = _cache_write(ck, kq, index), _cache_write(cks, ksc, index)
+        cv, cvs = _cache_write(cv, vq, index), _cache_write(cvs, vsc, index)
+        cpos = _cache_write(cpos, positions, index)
+        new_cache = (ck, cv, cks, cvs, cpos)
+        return new_cache, dequantize_rows(ck, cks, k.dtype), dequantize_rows(cv, cvs, v.dtype), cpos
+    ck, cv, cpos = kv_cache
+    ck = _cache_write(ck, k, index)
+    cv = _cache_write(cv, v, index)
+    cpos = _cache_write(cpos, positions, index)
+    return (ck, cv, cpos), ck, cv, cpos
+
+
+def _project(x, w):
+    """``bsd,dhk->bshk``."""
+    B, S, d = x.shape
+    return torch.matmul(x, w.to(x.dtype).reshape(d, -1)).reshape(B, S, w.shape[1], w.shape[2])
+
+
+def gqa_forward(
+    params,
+    x,
+    positions,
+    cfg: ModelConfig,
+    window: int = 0,
+    positions_3d=None,
+    kv_cache: Optional[Tuple] = None,
+    cache_index=None,
+    fresh_cache: bool = False,
+):
+    """Returns (out, new_kv) — new_kv only when kv_cache is given (decode)."""
+    if cfg.mrope_sections:
+        raise NotImplementedError("M-RoPE (the VLM family) is not ported yet")
+    hd = cfg.resolved_head_dim
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if cfg.qk_norm:
+        q = _head_rms(q, params["q_norm"])
+        k = _head_rms(k, params["k_norm"])
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    scale = hd ** -0.5
+
+    if kv_cache is not None:
+        new_cache, ck, cv, cpos = _write_kv_cache(kv_cache, k, v, positions, cache_index)
+        Sq, Sk = k.shape[1], ck.shape[1]
+        if fresh_cache:
+            # single-pass prefill into an empty cache: attend within the
+            # freshly projected K/V (the cache tail is all masked sentinels)
+            if Sq > BLOCKWISE_THRESHOLD:
+                out = _long_prefill_attention(q, k, v, positions, scale, window)
+            else:
+                out = _sdpa(q, k, v, causal_mask_bias(positions, positions, window), scale)
+        elif Sq > 1 and Sq * Sk > BLOCKWISE_THRESHOLD ** 2:
+            # later prefill blocks attend against earlier cache content too
+            out = _blockwise_sdpa(q, ck, cv, positions, cpos, scale, window)
+        else:
+            out = _sdpa(q, ck, cv, _decode_bias(positions, cpos, window), scale)
+    else:
+        if k.shape[1] > BLOCKWISE_THRESHOLD:
+            out = _blockwise_sdpa(q, k, v, positions, positions, scale, window)
+        else:
+            out = _sdpa(q, k, v, causal_mask_bias(positions, positions, window), scale)
+        new_cache = None
+
+    B, S = out.shape[:2]
+    wo = params["wo"].to(out.dtype)
+    out = torch.matmul(out.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
+    return out, new_cache
+
+
+def _head_rms(x, scale, eps=1e-6):
+    dt = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(torch.square(xf), -1, keepdim=True) + eps)
+    return (y * scale.float()).to(dt)
+
+
+def _decode_bias(q_pos, k_pos, window: int):
+    ok = k_pos[:, None, :] <= q_pos[:, :, None]
+    ok = ok & _window_ok(q_pos[:, :, None], k_pos[:, None, :], window)
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def attention_forward(params, x, positions, cfg: ModelConfig, **kw):
+    if cfg.attention == "mla":
+        return mla_forward(params, x, positions, cfg, **kw)
+    return gqa_forward(params, x, positions, cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# KV cache construction
+# ---------------------------------------------------------------------------
+
+
+def make_kv_cache_specs(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16):
+    """Per-layer cache ``CacheSpec``s + logical axes for one layer.
+
+    int8 caches carry two extra leaves per tuple — f32 per-row scales for the
+    K and V codes — laid out ``(k, v, k_scale, v_scale, pos)`` so the int32
+    position track stays the last leaf in both layouts.
+    """
+    if cfg.attention == "mla":
+        raise NotImplementedError("MLA caches are not ported yet")
+    hd = cfg.resolved_head_dim
+    shapes = [CacheSpec((batch, cache_len, cfg.num_kv_heads, hd), dtype)] * 2
+    axes = [("batch", "cache_seq", "kv_heads", None)] * 2
+    if is_int8(dtype):
+        shapes += [CacheSpec((batch, cache_len, cfg.num_kv_heads), torch.float32)] * 2
+        axes += [("batch", "cache_seq", "kv_heads")] * 2
+    shapes.append(CacheSpec((batch, cache_len), torch.int32))
+    axes.append(("batch", "cache_seq"))
+    return tuple(shapes), tuple(axes)

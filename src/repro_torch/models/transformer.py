@@ -1,0 +1,233 @@
+"""Model assembly, the dense family (``repro/models/transformer.py``).
+
+Layer parameters stay stacked along a leading layer dimension, so the
+reference's parameter tree maps onto the port's leaf for leaf; where the
+reference scans over the stack, the port loops over its slices. gemma3's 5
+local : 1 global schedule is a per-layer list of window ints, which the
+flash kernel takes at run time.
+
+Decode caches are stacked the same way and written IN PLACE through the
+per-layer views (the reference donates them): ``decode_step`` returns the
+cache tensors it was given, updated. The MoE, SSM, hybrid, audio and VLM
+families raise "not ported yet".
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.pytree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.mlp import mlp_forward, mlp_specs
+
+DENSE_FAMILIES = ("dense",)
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family not in DENSE_FAMILIES:
+        raise NotImplementedError(f"the {cfg.family!r} family is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Per-layer specs
+# ---------------------------------------------------------------------------
+
+
+def block_specs(cfg: ModelConfig, kind: str) -> Dict:
+    """kind: attn_mlp (attn_moe | mamba | encdec are not ported yet)."""
+    if kind != "attn_mlp":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    d = cfg.d_model
+    return {
+        "norm1": L.norm_specs(cfg.norm, d),
+        "attn": A.attention_specs(cfg),
+        "norm2": L.norm_specs(cfg.norm, d),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def stack_specs(cfg: ModelConfig, n_layers: int, kind: str) -> Dict:
+    """Stack per-layer specs along a leading layer dim."""
+    return tree_map(lambda s: L.Spec((n_layers,) + s.shape, ("stack",) + s.axes, s.init, s.scale),
+                    block_specs(cfg, kind))
+
+
+# ---------------------------------------------------------------------------
+# Block forward and the layer loop
+# ---------------------------------------------------------------------------
+
+
+def attn_mlp_block(params, x, positions, cfg, window, kv_cache=None, cache_index=None,
+                   positions_3d=None, fresh_cache=False):
+    h = L.apply_norm(cfg.norm, params["norm1"], x)
+    a, new_cache = A.attention_forward(
+        params["attn"], h, positions, cfg, window=window,
+        kv_cache=kv_cache, cache_index=cache_index, positions_3d=positions_3d,
+        fresh_cache=fresh_cache,
+    )
+    x = x + a
+    h = L.apply_norm(cfg.norm, params["norm2"], x)
+    x = x + mlp_forward(params["mlp"], h, cfg)
+    return x, new_cache
+
+
+def layer_params(stacked, i: int):
+    """Layer ``i``'s slice (views) of a stacked parameter tree."""
+    return tree_map(lambda a: a[i], stacked)
+
+
+def dense_stack_decode(params, x, positions, cfg, windows, caches, cache_index,
+                       fresh_cache=False):
+    """The reference's ``lax.scan`` over layers as a loop over the stack's
+    slices; each layer writes its cache slice in place."""
+    for i, win in enumerate(windows):
+        x, _ = attn_mlp_block(layer_params(params, i), x, positions, cfg, win,
+                              kv_cache=tuple(c[i] for c in caches), cache_index=cache_index,
+                              fresh_cache=fresh_cache)
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Layer schedules
+# ---------------------------------------------------------------------------
+
+
+def layer_windows(cfg: ModelConfig, n_layers: int, force_window: bool = False) -> List[int]:
+    """Per-layer window ints. gemma3: 5 local (sliding) : 1 global (full)."""
+    win = cfg.sliding_window or 0
+    if win == 0:
+        return [0] * n_layers
+    if cfg.local_global_ratio > 0 and not force_window:
+        period = cfg.local_global_ratio + 1
+        return [0 if (i % period) == cfg.local_global_ratio else win for i in range(n_layers)]
+    return [win] * n_layers
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+
+def model_specs(cfg: ModelConfig) -> Dict:
+    _require_dense(cfg)
+    d = cfg.d_model
+    s: Dict = {"embed": L.embed_specs(cfg.vocab_size, d),
+               "layers": stack_specs(cfg, cfg.num_layers, "attn_mlp"),
+               "final_norm": L.norm_specs(cfg.norm, d)}
+    if not cfg.tie_embeddings:
+        s["head"] = L.dense_specs(d, cfg.vocab_size, (None, "vocab"), scale=0.02)
+    return s
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device="cpu", dtype=torch.float32):
+    """The reference's ``L.init_params(T.model_specs(cfg), key)`` output, as
+    a nested dict of numpy arrays, in the port's layout (the same tree and
+    shapes: the stacked leaves map one to one)."""
+    specs = model_specs(cfg)
+    spec_leaves, treedef = tree_flatten(specs)
+    leaves, got_def = tree_flatten(tree)
+    if got_def != treedef:
+        raise ValueError("parameter tree does not match model_specs(cfg)")
+    out = []
+    for spec, arr in zip(spec_leaves, leaves):
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(spec.shape):
+            raise ValueError(f"parameter of shape {arr.shape}, expected {spec.shape}")
+        out.append(torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=dtype))
+    return tree_unflatten(treedef, out)
+
+
+def logits_from_hidden(cfg: ModelConfig, params, hidden):
+    if cfg.tie_embeddings:
+        return L.unembed(params["embed"], hidden)
+    return L.dense(params["head"], hidden)
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve_step core)
+# ---------------------------------------------------------------------------
+
+
+def make_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16):
+    """``CacheSpec``s of the stacked per-layer caches + logical axes trees.
+
+    ``dtype=torch.int8`` selects the quantized layout (extra f32 scale
+    leaves; see models/quant.py).
+    """
+    _require_dense(cfg)
+    shapes, axes = A.make_kv_cache_specs(cfg, batch, cache_len, dtype)
+    Lx = cfg.num_layers
+    stacked = tuple(A.CacheSpec((Lx,) + tuple(s.shape), s.dtype) for s in shapes)
+    st_axes = tuple(("stack",) + a for a in axes)
+    return {"kv": stacked}, {"kv": st_axes}
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
+                       device="cpu"):
+    """Concrete zero caches with the position track set to the INT32_MAX
+    sentinel so unwritten slots never pass the causal mask."""
+    sds, _ = make_decode_caches(cfg, batch, cache_len, dtype)
+
+    def init_one(s):
+        if s.dtype == torch.int32:
+            return torch.full(s.shape, A.INT32_MAX, dtype=torch.int32, device=device)
+        return torch.zeros(s.shape, dtype=s.dtype, device=device)
+
+    return {"kv": tuple(init_one(s) for s in sds["kv"])}
+
+
+def decode_positions(index, B: int, S: int, device):
+    """int32 [B, S] positions of a write at ``index`` (an int, or an int32
+    [B] tensor of per-slot positions)."""
+    ar = torch.arange(S, dtype=torch.int32, device=device)
+    if isinstance(index, torch.Tensor) and index.dim() == 1:
+        return index.to(device=device, dtype=torch.int32)[:, None] + ar[None, :]
+    return (int(index) + ar).expand(B, S)
+
+
+def decode_hidden(cfg: ModelConfig, params, tokens, caches, index, force_window=False,
+                  fresh_cache=False):
+    """``decode_step`` up to the final norm: (hidden [B, S, D], caches).
+
+    The serving engine unembeds only the last position of a prefill block
+    from this, instead of the full [B, S, V] logits."""
+    _require_dense(cfg)
+    B, S = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    # the reference's jnp.asarray(np.sqrt(d), x.dtype): the fp32-rounded
+    # factor, as a Python scalar (a tensor built on the card would stall
+    # the stream on its host copy)
+    x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype))
+    positions = decode_positions(index, B, S, x.device)
+    windows = layer_windows(cfg, cfg.num_layers, force_window)
+    x, new_kv = dense_stack_decode(params["layers"], x, positions, cfg, windows,
+                                   caches["kv"], index, fresh_cache)
+    return L.apply_norm(cfg.norm, params["final_norm"], x), {"kv": new_kv}
+
+
+def decode_step(cfg: ModelConfig, params, tokens, caches, index, force_window=False,
+                fresh_cache=False):
+    """One cache-threading forward: single decode token OR a whole prefill block.
+
+    tokens: [B, S] token ids. ``index`` is either a scalar cache write
+    position — the S tokens land contiguously at [index, index + S) — or an
+    int32 [B] tensor of per-slot positions (continuous batching), whose
+    writes at or past ``cache_len`` are dropped. ``fresh_cache`` asserts
+    nothing precedes this write in the cache, routing long prefill blocks
+    through the flash attention path instead of cache-wide scores.
+
+    Returns (logits [B, S, V], caches), the caches updated in place.
+    """
+    hidden, new_caches = decode_hidden(cfg, params, tokens, caches, index, force_window,
+                                       fresh_cache)
+    return logits_from_hidden(cfg, params, hidden), new_caches
+
+
+def supports_self_speculation(cfg: ModelConfig) -> bool:
+    """Self-speculative decoding needs a homogeneous stacked layer scan to
+    truncate and caches that can be safely overwritten on rejection."""
+    return cfg.family in ("dense", "vlm", "moe")
