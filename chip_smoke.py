@@ -5,7 +5,8 @@
 
 Phases, in order; any failure raises and the script exits nonzero:
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
-     the nvcc build of every kernel source in src/repro_torch/csrc/;
+     the nvcc build of every kernel source in src/repro_torch/csrc/ (one
+     nvcc per source, all started together);
   2. the compress kernel against its plain PyTorch version on the card, at
      the main path's shape (also with NaN rows) and at a large ragged shape:
      bit-identical (torch.equal), with device times (CUDA graph replays
@@ -51,14 +52,36 @@ Serving (after phase 2b, 3c and 4b respectively):
      widths with a 4096-token prompt (the card takes the flash kernel, the
      CPU the blockwise twin): first-step logits within 1e-4 of the largest
      |logit|, and equal greedy tokens from the engine.
+
+Serving the ssm family (after phase 2c, 3d and 4c respectively):
+  2d. the scan kernel against its plain PyTorch version on the card, bit for
+     bit (torch.equal), in fp32 and bf16: falcon-mamba-7b's prefill chunk
+     [2, 256, 131072], its decode step [2, 1, 131072] and ragged
+     [3, 37, 7] and [2, 300, 200]; the kernel's and the plain version's
+     times beside the bytes bound (no single PyTorch call computes it);
+  3e. ``repro_torch.launch.serve`` with --arch falcon-mamba-7b --full --batch
+     2 --prompt-len 4096 --gen 32, the launch counters zeroed just before
+     and read just after: exactly 1024 scan launches for the prefill (64
+     layers x 16 chunks of 256 tokens) plus 64 per decode step, no other
+     kernel of the port, 64 tokens in [0, V), prefill seconds, ms a decode
+     step, peak device memory and the seconds the weights took to draw on
+     the card and the host's peak resident memory; then one layer's w_in
+     (6.7e7 values) drawn as on the CPU, with its seconds and memory;
+  4d. the card against the CPU at falcon-mamba-7b's smoke widths with a
+     300-token prompt (blocks of 256, 32, 8 and 4 tokens in the engine):
+     first-step logits within 1e-4 of the largest |logit|, and equal greedy
+     tokens.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
 import math
+import os
 import re
+import resource
 import statistics
 import subprocess
 import sys
@@ -87,11 +110,13 @@ from repro_torch.kernels import build, launch_counts, reset_launch_counts  # noq
 from repro_torch.kernels.compress import fused_compress, stack_rows  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
                                                  flash_attention_ref)
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.train import parse_args, run_ehealth, setup_ehealth  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.ssm import CHUNK as SSM_CHUNK  # noqa: E402
 
 # Data-sheet rates, dense, at the full power limit: (memory B/s, fp32 FLOP/s
 # outside the tensor cores). Matched on the name nvidia-smi reports.
@@ -124,6 +149,21 @@ FLASH_CASES = (
 SERVE_ARGV = ["--arch", "gemma3-1b", "--full", "--batch", "2", "--prompt-len", "4096",
               "--gen", "32"]
 SERVE_PARITY_LEN, SERVE_PARITY_GEN = 4096, 8
+# (name, (B, T, C), a and b dtype, h0 dtype); the first is the serving
+# path's prefill chunk (C = d_inner * ssm_state of falcon-mamba-7b)
+SCAN_CASES = (
+    ("falcon-mamba-7b prefill chunk", (2, 256, 131072), torch.float32, torch.float32),
+    ("falcon-mamba-7b decode step", (2, 1, 131072), torch.float32, torch.float32),
+    ("ragged", (3, 37, 7), torch.float32, torch.float32),
+    ("ragged", (2, 300, 200), torch.float32, torch.float32),
+    ("falcon-mamba-7b prefill chunk bf16", (2, 256, 131072), torch.bfloat16, torch.bfloat16),
+    ("falcon-mamba-7b decode step bf16", (2, 1, 131072), torch.bfloat16, torch.bfloat16),
+    ("ragged bf16, f32 state", (3, 37, 7), torch.bfloat16, torch.float32),
+    ("ragged bf16", (2, 300, 200), torch.bfloat16, torch.bfloat16),
+)
+SSM_SERVE_ARGV = ["--arch", "falcon-mamba-7b", "--full", "--batch", "2", "--prompt-len", "4096",
+                  "--gen", "32"]
+SSM_PARITY_LEN, SSM_PARITY_GEN = 300, 8
 PARITY_ROUNDS = 2
 ADAPTIVE_PARITY_STEPS = 8
 
@@ -363,6 +403,79 @@ def check_flash_kernel(device, name):
     return results[FLASH_CASES[0][0]], main_err
 
 
+def scan_bound_ms(shape, a_dtype, h_dtype, bw, flops):
+    """Least time for one scan: a and b read once, hs written once (in a's
+    type), h0 read and h_last written once (in h0's type), against 2 fp32
+    operations a step. Returns (bound_ms, bound_by)."""
+    B, T, C = shape
+    ea, eh = torch.finfo(a_dtype).bits // 8, torch.finfo(h_dtype).bits // 8
+    t_bytes = (3 * B * T * C * ea + 2 * B * C * eh) / bw * 1e3
+    t_ops = 2 * B * T * C / flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_scan_kernel(device, name):
+    """Phase 2d: the scan kernel against its plain version, bit for bit, on
+    every case, timed beside the plain version and the bound. Returns the
+    comparison at the serving path's prefill chunk (fp32) and the largest
+    difference seen (0 when all are bit-identical)."""
+    bw, flops32 = card_rates(name)
+    results, max_err = {}, 0.0
+    for case, shape, a_dtype, h_dtype in SCAN_CASES:
+        g = torch.Generator(device=device).manual_seed(sum(shape))
+        a = torch.sigmoid(torch.randn(shape, generator=g, device=device)).to(a_dtype)
+        b = torch.randn(shape, generator=g, device=device).to(a_dtype)
+        h0 = torch.randn((shape[0], shape[2]), generator=g, device=device).to(h_dtype)
+        got = ssm_scan_cuda(a, b, h0)
+        torch.cuda.synchronize()
+        want = ssm_scan_ref(a, b, h0)
+        torch.cuda.synchronize()
+        check(got[0].dtype == a_dtype and got[1].dtype == h_dtype, f"scan {case}: output types")
+        err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
+        max_err = max(max_err, err)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"scan {case} {shape} {a_dtype}: kernel differs from plain (max |diff| {err})")
+        ms = device_ms(lambda: ssm_scan_cuda(a, b, h0))
+        plain_ms = device_ms(lambda: ssm_scan_ref(a, b, h0), inner=2, reps=5)
+        bound, bound_by = scan_bound_ms(shape, a_dtype, h_dtype, bw, flops32)
+        res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": bound_by}
+        results[case, shape] = res
+        print(f"[scan] {case}: shape={list(shape)} a={a_dtype} h0={h_dtype} bit-identical "
+              f"kernel_ms={ms} plain_ms={plain_ms} bound_ms={bound} ({bound_by}) "
+              f"kernel/bound={ms / bound} library_ms=null (no single PyTorch call computes "
+              f"this function)")
+        del a, b, h0, got, want
+    return results[SCAN_CASES[0][0], SCAN_CASES[0][1]], max_err
+
+
+def host_rss_bytes() -> int:
+    """This process's resident set now."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def time_cpu_draw(cfg):
+    """Draw one layer's ``w_in`` leaf of ``cfg`` as ``build_inputs`` would on
+    the CPU (one CPU generator, ``init_params``): the cost per value that
+    drawing the full-width weights on the card avoids. Prints seconds and
+    host memory: the peak so far (the card's draw included) and the leaf's."""
+    spec = T.block_specs(cfg, "mamba")["mamba"]["w_in"]
+    peak0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    L.init_params({"w": L.Spec((64, 64), spec.axes)}, torch.Generator())  # first-call costs
+    rss0 = host_rss_bytes()
+    t0 = time.perf_counter()
+    leaf = L.init_params({"w_in": spec}, torch.Generator().manual_seed(0))["w_in"]
+    dt = time.perf_counter() - t0
+    rss1 = host_rss_bytes()
+    print(f"[init-cpu] peak host RSS before it {peak0} bytes; one layer's w_in "
+          f"{list(spec.shape)}: {leaf.numel()} values drawn on one CPU generator in {dt} s "
+          f"({leaf.numel() / dt} values/s, {torch.get_num_threads()} CPU threads); host RSS "
+          f"{rss0} -> {rss1} bytes")
+    check(bool(torch.isfinite(leaf).all()), "CPU-drawn w_in is not finite")
+    del leaf
+
+
 def run_serve_cli(argv):
     """``repro_torch.launch.serve`` on ``argv``: (report, tokens)."""
     buf = io.StringIO()
@@ -372,22 +485,22 @@ def run_serve_cli(argv):
     return report, tokens
 
 
-def serve_parity(*devices):
-    """gemma3-1b smoke widths, one 4096-token prompt pair: (first-step
-    logits [B, V] on the CPU, greedy engine tokens) per device, from the
-    same CPU-drawn params."""
-    cfg = get_config("gemma3-1b", smoke=True)
+def serve_parity(arch, prompt_len, gen, *devices):
+    """``arch``'s smoke widths, one prompt pair of ``prompt_len`` tokens:
+    (first-step logits [B, V] on the CPU, greedy engine tokens) per device,
+    from the same CPU-drawn params."""
+    cfg = get_config(arch, smoke=True)
     params0 = L.init_params(T.model_specs(cfg), torch.Generator().manual_seed(0))
-    prompts = serve.build_inputs(cfg, 2, SERVE_PARITY_LEN, seed=0)[1]
+    prompts = serve.build_inputs(cfg, 2, prompt_len, seed=0)[1]
     out = []
     for dev in devices:
         params = tree_map(lambda t: t.to(dev), params0)
-        caches = T.init_decode_caches(cfg, 2, SERVE_PARITY_LEN, torch.float32, dev)
+        caches = T.init_decode_caches(cfg, 2, prompt_len, torch.float32, dev)
         logits, _ = T.decode_step(cfg, params, torch.from_numpy(prompts).to(dev), caches, 0,
                                   fresh_cache=True)
         engine = ServeEngine(cfg, params, max_batch=2, cache_dtype=torch.float32,
                              decode_block=4)
-        toks, _ = engine.generate(list(prompts), SERVE_PARITY_GEN)
+        toks, _ = engine.generate(list(prompts), gen)
         out.append((logits[:, -1].cpu(), toks))
     return out
 
@@ -522,7 +635,9 @@ def main() -> int:
     print(f"[versions] python={sys.version.split()[0]} torch={torch.__version__} "
           f"cuda={torch.version.cuda} devices={torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    seconds = {src.stem: build.build(src.stem) for src in sorted(build.CSRC.glob("*.cu"))}
+    sources = [src.stem for src in sorted(build.CSRC.glob("*.cu"))]
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        seconds = dict(zip(sources, pool.map(build.build, sources)))
     print(f"[build] nvcc seconds per source: {seconds}; all: {time.perf_counter() - t0}")
     for src in seconds:
         print(f"[build] {src}: {build.build_log(src).strip()}")
@@ -545,6 +660,9 @@ def main() -> int:
 
     # -- phase 2c: the flash-attention kernel against plain ------------------
     flash_main, max_err_flash = check_flash_kernel(device, name)
+
+    # -- phase 2d: the scan kernel against plain, bit for bit ------------------
+    scan_main, max_err_scan = check_scan_kernel(device, name)
 
     # -- phase 3: the main path -------------------------------------------
     args = parse_args(MAIN_ARGV + ["--device", "cuda", "--rounds", str(MAIN_ROUNDS)])
@@ -624,6 +742,35 @@ def main() -> int:
     check(len(tokens) == 2 and all(len(t) == 32 and all(0 <= x < vocab for x in t)
                                    for t in tokens), "serving tokens out of [0, V)")
 
+    # -- phase 3e: the ssm serving path at full width ------------------------
+    reset_launch_counts()
+    report, tokens = run_serve_cli(SSM_SERVE_ARGV)
+    torch.cuda.synchronize()
+    counts_ssm = dict(launch_counts)
+    ssm_cfg = get_config("falcon-mamba-7b")
+    ssm_args = serve.parse_args(SSM_SERVE_ARGV)
+    gen, block = ssm_args.gen, ssm_args.decode_block
+    decode_steps = block * math.ceil((gen - 1) / block)  # the prefill samples token 1
+    want_prefill = ssm_cfg.num_layers * math.ceil(ssm_args.prompt_len / SSM_CHUNK)
+    want = want_prefill + ssm_cfg.num_layers * decode_steps
+    print(f"[serve-ssm] launches={counts_ssm} (prefill {want_prefill} + {ssm_cfg.num_layers} x "
+          f"{decode_steps} decode steps) prefill_s={report['prefill_s']} "
+          f"ms_per_decode_step={report['ms_per_decode_step']} "
+          f"decode_tok_per_s={report['decode_tok_per_s']} first_token_s="
+          f"{[r['first_token_s'] for r in report['requests']]} "
+          f"executors={report['compiled_executors']} "
+          f"peak_device_bytes={report['peak_device_bytes']} "
+          f"peak_device_GiB={report['peak_device_bytes'] / 2 ** 30} "
+          f"init_s={report['init_s']} (weights of {ssm_cfg.param_count()} params drawn on the card)")
+    check(counts_ssm == {"ssm_scan": want},
+          f"ssm serving path launches {counts_ssm}, expected {want} scan launches and no other")
+    check(report["generated_tokens"] == 2 * gen, f"generated {report['generated_tokens']} tokens")
+    check(len(tokens) == 2 and all(len(t) == gen and all(0 <= x < ssm_cfg.vocab_size for x in t)
+                                   for t in tokens), "ssm serving tokens out of [0, V)")
+    del report, tokens
+    torch.cuda.empty_cache()
+    time_cpu_draw(ssm_cfg)
+
     # -- phase 4: the card against the CPU ---------------------------------
     on_cpu, on_card = same_start_losses(torch.device("cpu"), device)
     rel = float(((on_card - on_cpu).abs() / on_cpu.abs()).max())
@@ -648,13 +795,25 @@ def main() -> int:
 
     # -- phase 4c: the card against the CPU on the serving path -------------
     reset_launch_counts()
-    (lg_cpu, tok_cpu), (lg_card, tok_card) = serve_parity(torch.device("cpu"), device)
+    (lg_cpu, tok_cpu), (lg_card, tok_card) = serve_parity(
+        "gemma3-1b", SERVE_PARITY_LEN, SERVE_PARITY_GEN, torch.device("cpu"), device)
     rel = float((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max())
     print(f"[parity-serve] flash launches on the card={launch_counts['flash_attention']} "
           f"logits max |card - cpu| / max |cpu| = {rel} tokens cpu={tok_cpu} cuda={tok_card}")
     check(launch_counts["flash_attention"] > 0, "the card's serving parity run skipped the kernel")
     check(rel <= 1e-4, f"serving path: first-step logits differ by {rel} relative (> 1e-4)")
     check(tok_card == tok_cpu, "serving path: card and CPU greedy tokens differ")
+
+    # -- phase 4d: the card against the CPU on the ssm serving path ----------
+    reset_launch_counts()
+    (lg_cpu, tok_cpu), (lg_card, tok_card) = serve_parity(
+        "falcon-mamba-7b", SSM_PARITY_LEN, SSM_PARITY_GEN, torch.device("cpu"), device)
+    rel = float((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max())
+    print(f"[parity-serve-ssm] scan launches on the card={launch_counts['ssm_scan']} "
+          f"logits max |card - cpu| / max |cpu| = {rel} tokens cpu={tok_cpu} cuda={tok_card}")
+    check(launch_counts["ssm_scan"] > 0, "the card's ssm parity run skipped the kernel")
+    check(rel <= 1e-4, f"ssm serving path: first-step logits differ by {rel} relative (> 1e-4)")
+    check(tok_card == tok_cpu, "ssm serving path: card and CPU greedy tokens differ")
 
     # -- phase 5: summary ----------------------------------------------------
     kernels = [{
@@ -693,6 +852,18 @@ def main() -> int:
         "bound_ms": flash_main["bound_ms"],
         "bound_by": flash_main["bound_by"],
         "library_ms": flash_main["library_ms"],
+    }, {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:49",
+        "launches": counts_ssm["ssm_scan"],
+        "max_abs_err": max_err_scan,
+        "ms": scan_main["ms"],
+        "plain_ms": scan_main["plain_ms"],
+        "bound_ms": scan_main["bound_ms"],
+        "bound_by": scan_main["bound_by"],
+        "library_ms": None,
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,9 @@
 configuration (the paper's hyper-parameters).
 
 Same fields, defaults and validation errors as ``repro/common/config.py``.
-The registry holds the dense architectures the port runs
-(``repro_torch/configs``); the reference's other architectures raise "not
-ported yet".
+The registry holds the architectures the port runs (``repro_torch/configs``:
+the dense family and Mamba-1); the reference's other architectures raise
+"not ported yet".
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture description (all the reference's fields; the port runs
-    the dense family)."""
+    the dense and ssm families)."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | audio | vlm | cnn | lstm
@@ -127,9 +127,8 @@ class ModelConfig:
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 # the reference's architectures that the port does not run yet
-UNPORTED_ARCHS = ("deepseek-v3-671b", "falcon-mamba-7b", "gemma3-4b", "grok-1-314b",
-                  "nemotron-4-15b", "qwen2-vl-72b", "whisper-medium", "zamba2-2.7b",
-                  "paper-cnn", "paper-lstm")
+UNPORTED_ARCHS = ("deepseek-v3-671b", "gemma3-4b", "grok-1-314b", "nemotron-4-15b",
+                  "qwen2-vl-72b", "whisper-medium", "zamba2-2.7b", "paper-cnn", "paper-lstm")
 
 
 def register_config(name: str, full: Callable[[], ModelConfig], smoke: Callable[[], ModelConfig]):

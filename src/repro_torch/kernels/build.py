@@ -7,8 +7,8 @@ by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused.
 
 Flags: ``sm_90a`` (Hopper, with its ``wgmma``/``setmaxnreg`` target), and
-``--fmad=false`` with no fast math, so that the compress kernels round
-exactly as their plain PyTorch version does. The flash-attention kernel,
+``--fmad=false`` with no fast math, so that the compress and scan kernels
+round exactly as their plain PyTorch versions do. The flash-attention kernel,
 held to a tolerance instead, asks for its fused multiply-adds explicitly
 (``fmaf``), which the flag leaves alone.
 """
@@ -42,6 +42,10 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "ssm_scan": {
+        "ssm_scan_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }

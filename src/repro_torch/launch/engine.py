@@ -2,13 +2,14 @@
 
 The trained global model θ̃ is what e-health institutions serve back to
 devices and clinicians. This is the port of ``repro/launch/engine.py`` for
-the dense family. Its executors are Python closures cached per shape
+the dense and ssm families. Its executors are Python closures cached per shape
 bucket under the reference's keys, as the reference caches one jitted
 program per bucket; ``compile_counts`` reports the caches' sizes under the
 reference's names.
 
 * **prefill** — ONE forward per power-of-two token block, writing every
-  layer's KV cache in place (``decode_hidden`` on [B, S] tokens). The first
+  layer's KV cache (or Mamba state, which chains the blocks) in place
+  (``decode_hidden`` on [B, S] tokens). The first
   block of a prompt builds its own caches and attends within itself
   (``fresh_cache``); when it is longer than ``BLOCKWISE_THRESHOLD`` (2048)
   its attention goes through the hand-written flash kernel on the card.
@@ -20,8 +21,8 @@ reference's names.
   cache write drops), with ONE host sync per block, when the scheduler
   collects the block's tokens.
 * **insert** — continuous batching: one executor copies a prefilled
-  group's cache rows into freed decode slots; pad rows carry
-  ``dst == max_batch`` and are dropped.
+  group's rows of every cache group (``"kv"``, ``"ssm"``) into freed decode
+  slots; pad rows carry ``dst == max_batch`` and are dropped.
 
 Sampling is greedy ``argmax`` at temperature 0; otherwise it draws on the
 device from one ``torch.Generator`` seeded from ``seed``, so two engines
@@ -229,8 +230,9 @@ class ServeEngine:
                 keep = np.flatnonzero(np.asarray(dst) < max_batch)
                 src = torch.as_tensor(keep, dtype=torch.long, device=device)
                 to = torch.as_tensor(np.asarray(dst)[keep], dtype=torch.long, device=device)
-                for d, p, ax in zip(dec_caches["kv"], pre_caches["kv"], bx["kv"]):
-                    d.index_copy_(ax, to, p.index_select(ax, src).to(d.dtype))
+                for group, axes in bx.items():
+                    for d, p, ax in zip(dec_caches[group], pre_caches[group], axes):
+                        d.index_copy_(ax, to, p.index_select(ax, src).to(d.dtype))
                 return dec_caches
 
             fn = self._insert_fns[key] = serve_insert

@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch gemma3-1b --full --batch 2 --prompt-len 4096 --gen 32 [--trace out.json]
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch falcon-mamba-7b --full --batch 2 --prompt-len 4096 --gen 32
 
 Takes the flags of ``repro_torch.launch.serve`` and needs a CUDA device.
 Builds the model and prompts as the CLI does, warms the engine up with one
@@ -10,9 +12,10 @@ the prefill alone (the same prompts with one new token each: the first
 prefill block, the first-token sample and the cache insert) and the whole
 request batch (prefill plus ``--gen`` tokens of decode). For each window it
 prints the wall time, the time the device was busy (the union of its
-kernel, copy and memset intervals), the device time of the flash kernel,
-of the matrix products (kernels named like a GEMM) and of everything else,
-and the kernels that took the most device time, as one JSON line.
+kernel, copy and memset intervals), the device time and launches of the
+port's flash and scan kernels, of the matrix products (kernels named like a
+GEMM) and of everything else, and the kernels that took the most device
+time, as one JSON line.
 """
 from __future__ import annotations
 
@@ -31,18 +34,22 @@ from repro_torch.launch import serve
 from repro_torch.launch.engine import ServeEngine
 from repro_torch.launch.profile_train import busy_us, device_intervals
 
-FLASH_KERNEL = "flash_fwd_kernel"
+PORT_KERNELS = {"flash": "flash_fwd_kernel", "scan": "ssm_scan_kernel"}
 GEMM_MARKS = ("gemm", "gemv", "cutlass", "xmma", "cublas")
 
 
 def kernel_split(intervals):
-    """Device µs of the flash kernel, of GEMM-like kernels and of the rest."""
-    out = {"flash_us": 0.0, "gemm_us": 0.0, "other_us": 0.0, "flash_launches": 0}
+    """Device µs (and launches) of the port's kernels, of GEMM-like kernels
+    and of the rest."""
+    out = {"gemm_us": 0.0, "other_us": 0.0}
+    for key in PORT_KERNELS:
+        out[f"{key}_us"], out[f"{key}_launches"] = 0.0, 0
     for cat, name, _, dur in intervals:
         low = name.lower()
-        if cat == "kernel" and FLASH_KERNEL in name:
-            out["flash_us"] += dur
-            out["flash_launches"] += 1
+        port = next((k for k, mark in PORT_KERNELS.items() if mark in name), None)
+        if cat == "kernel" and port is not None:
+            out[f"{port}_us"] += dur
+            out[f"{port}_launches"] += 1
         elif cat == "kernel" and any(m in low for m in GEMM_MARKS):
             out["gemm_us"] += dur
         else:

@@ -8,6 +8,8 @@ card unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \
       --batch 2 --prompt-len 4096 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --full \
+      --batch 2 --prompt-len 4096 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch gemma3-1b \
       --batch 2 --prompt-len 32 --gen 8
 """
@@ -34,10 +36,12 @@ NOT_PORTED = "not ported yet"
 def build_inputs(cfg, batch: int, prompt_len: int, seed: int = 0, device="cpu"):
     """(params, prompts) for a serve run. The prompts are the
     reference's (``np.random.RandomState(seed)``); the params come from the
-    port's ``init_params`` with ``torch.Generator().manual_seed(seed)``, so
-    they are not the reference's."""
-    params = L.init_params(T.model_specs(cfg), torch.Generator().manual_seed(seed),
-                           torch.float32, device)
+    port's ``init_params`` with a generator seeded with ``seed`` on
+    ``device`` itself, so they are not the reference's, and on the card
+    they differ from the CPU's (a full-width model is drawn there rather
+    than on one CPU generator; ``chip_smoke.py`` phase 3e times both)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = L.init_params(T.model_specs(cfg), gen, torch.float32, device)
     rng = np.random.RandomState(seed)
     prompts = rng.randint(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
     return params, prompts
@@ -88,10 +92,12 @@ def run(args):
     """Serve one batch of prompts: (report, tokens per request)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    t0 = time.perf_counter()
     params, prompts = build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
+    t_init = time.perf_counter() - t0
 
     if args.sequential:
         step = sequential_step_fn(cfg)
@@ -138,6 +144,7 @@ def run(args):
             "sample_output": tokens[0][:8],
         }
         report["generated_tokens"] = rep["generated_tokens"]
+    report["init_s"] = round(t_init, 3)
     report["device"] = str(device)
     if device.type == "cuda":
         report["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)

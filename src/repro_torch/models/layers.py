@@ -36,24 +36,26 @@ def _fan_in(shape) -> int:
 def init_params(specs, generator: torch.Generator, dtype=torch.float32, device="cpu"):
     """Initialize a tree of Specs into tensors on ``device``.
 
-    Draws come from ``generator`` (a CPU generator, so the values do not
-    depend on the device) in sorted-key leaf order, as the reference splits
-    its key per leaf.
+    Draws come from ``generator`` in sorted-key leaf order, as the reference
+    splits its key per leaf, and are made on the generator's device: a CPU
+    generator gives the same values whatever ``device`` is, a CUDA one
+    draws a full-width model on the card without holding it on the host.
     """
     leaves, treedef = tree_flatten(specs)
+    gdev = generator.device
     out = []
     for spec in leaves:
         if spec.init == "zeros":
-            arr = torch.zeros(spec.shape, dtype=torch.float32)
+            arr = torch.zeros(spec.shape, dtype=torch.float32, device=gdev)
         elif spec.init == "ones":
-            arr = torch.ones(spec.shape, dtype=torch.float32)
+            arr = torch.ones(spec.shape, dtype=torch.float32, device=gdev)
         elif spec.init == "embed":
             s = spec.scale if spec.scale is not None else 1.0
-            arr = torch.randn(spec.shape, generator=generator).mul_(s)
+            arr = torch.randn(spec.shape, generator=generator, device=gdev).mul_(s)
         elif spec.init == "normal":  # truncated-normal fan-in scaled (lecun)
             s = spec.scale if spec.scale is not None else 1.0 / math.sqrt(max(_fan_in(spec.shape), 1))
-            arr = torch.nn.init.trunc_normal_(
-                torch.empty(spec.shape), 0.0, 1.0, -2.0, 2.0, generator=generator).mul_(s)
+            arr = torch.nn.init.trunc_normal_(torch.empty(spec.shape, device=gdev), 0.0, 1.0,
+                                              -2.0, 2.0, generator=generator).mul_(s)
         else:
             raise ValueError(f"unknown init {spec.init!r}")
         out.append(arr.to(device=device, dtype=dtype))

@@ -1,4 +1,4 @@
-"""Model assembly, the dense family (``repro/models/transformer.py``).
+"""Model assembly, the dense and ssm families (``repro/models/transformer.py``).
 
 Layer parameters stay stacked along a leading layer dimension, so the
 reference's parameter tree maps onto the port's leaf for leaf; where the
@@ -8,8 +8,9 @@ flash kernel takes at run time.
 
 Decode caches are stacked the same way and written IN PLACE through the
 per-layer views (the reference donates them): ``decode_step`` returns the
-cache tensors it was given, updated. The MoE, SSM, hybrid, audio and VLM
-families raise "not ported yet".
+cache tensors it was given, updated — the dense family's KV caches under
+``"kv"``, the ssm family's (conv, h) states under ``"ssm"``. The MoE,
+hybrid, audio and VLM families raise "not ported yet".
 """
 from __future__ import annotations
 
@@ -22,13 +23,15 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.common.pytree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.mlp import mlp_forward, mlp_specs
+from repro_torch.models.quant import is_int8
 
-DENSE_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm")
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family not in DENSE_FAMILIES:
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"the {cfg.family!r} family is not ported yet")
 
 
@@ -38,10 +41,12 @@ def _require_dense(cfg: ModelConfig) -> None:
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> Dict:
-    """kind: attn_mlp (attn_moe | mamba | encdec are not ported yet)."""
+    """kind: attn_mlp | mamba (attn_moe | encdec are not ported yet)."""
+    d = cfg.d_model
+    if kind == "mamba":
+        return {"norm": L.norm_specs(cfg.norm, d), "mamba": SSM.mamba_specs(cfg)}
     if kind != "attn_mlp":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    d = cfg.d_model
     return {
         "norm1": L.norm_specs(cfg.norm, d),
         "attn": A.attention_specs(cfg),
@@ -75,6 +80,12 @@ def attn_mlp_block(params, x, positions, cfg, window, kv_cache=None, cache_index
     return x, new_cache
 
 
+def mamba_block(params, x, cfg, state=None):
+    h = L.apply_norm(cfg.norm, params["norm"], x)
+    m, new_state = SSM.mamba_forward(params["mamba"], h, cfg, state)
+    return x + m, new_state
+
+
 def layer_params(stacked, i: int):
     """Layer ``i``'s slice (views) of a stacked parameter tree."""
     return tree_map(lambda a: a[i], stacked)
@@ -89,6 +100,17 @@ def dense_stack_decode(params, x, positions, cfg, windows, caches, cache_index,
                               kv_cache=tuple(c[i] for c in caches), cache_index=cache_index,
                               fresh_cache=fresh_cache)
     return x, caches
+
+
+def mamba_stack_decode(params, x, cfg, states):
+    """The reference's ``lax.scan`` over Mamba layers as a loop; each layer's
+    new (conv, h) state is written into its slice of the stacked states."""
+    for i in range(cfg.num_layers):
+        st = tuple(s[i] for s in states)
+        x, new_st = mamba_block(layer_params(params, i), x, cfg, state=st)
+        for dst, src in zip(st, new_st):
+            dst.copy_(src)
+    return x, states
 
 
 # ---------------------------------------------------------------------------
@@ -113,10 +135,11 @@ def layer_windows(cfg: ModelConfig, n_layers: int, force_window: bool = False) -
 
 
 def model_specs(cfg: ModelConfig) -> Dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     d = cfg.d_model
+    kind = "mamba" if cfg.family == "ssm" else "attn_mlp"
     s: Dict = {"embed": L.embed_specs(cfg.vocab_size, d),
-               "layers": stack_specs(cfg, cfg.num_layers, "attn_mlp"),
+               "layers": stack_specs(cfg, cfg.num_layers, kind),
                "final_norm": L.norm_specs(cfg.norm, d)}
     if not cfg.tie_embeddings:
         s["head"] = L.dense_specs(d, cfg.vocab_size, (None, "vocab"), scale=0.02)
@@ -156,14 +179,22 @@ def make_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch
     """``CacheSpec``s of the stacked per-layer caches + logical axes trees.
 
     ``dtype=torch.int8`` selects the quantized layout (extra f32 scale
-    leaves; see models/quant.py).
+    leaves; see models/quant.py). SSM states stay f32 for every non-int8
+    dtype (the recurrence is precision-sensitive) and take the quantized
+    layout under int8, as the reference's do.
     """
-    _require_dense(cfg)
-    shapes, axes = A.make_kv_cache_specs(cfg, batch, cache_len, dtype)
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        group = "ssm"
+        shapes, axes = SSM.mamba_state_specs(cfg, batch,
+                                             dtype if is_int8(dtype) else torch.float32)
+    else:
+        group = "kv"
+        shapes, axes = A.make_kv_cache_specs(cfg, batch, cache_len, dtype)
     Lx = cfg.num_layers
     stacked = tuple(A.CacheSpec((Lx,) + tuple(s.shape), s.dtype) for s in shapes)
     st_axes = tuple(("stack",) + a for a in axes)
-    return {"kv": stacked}, {"kv": st_axes}
+    return {group: stacked}, {group: st_axes}
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
@@ -177,7 +208,7 @@ def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch
             return torch.full(s.shape, A.INT32_MAX, dtype=torch.int32, device=device)
         return torch.zeros(s.shape, dtype=s.dtype, device=device)
 
-    return {"kv": tuple(init_one(s) for s in sds["kv"])}
+    return {k: tuple(init_one(s) for s in v) for k, v in sds.items()}
 
 
 def decode_positions(index, B: int, S: int, device):
@@ -194,19 +225,27 @@ def decode_hidden(cfg: ModelConfig, params, tokens, caches, index, force_window=
     """``decode_step`` up to the final norm: (hidden [B, S, D], caches).
 
     The serving engine unembeds only the last position of a prefill block
-    from this, instead of the full [B, S, V] logits."""
-    _require_dense(cfg)
+    from this, instead of the full [B, S, V] logits. The ssm family ignores
+    ``index`` and ``fresh_cache``, as the reference does: its state is the
+    whole past, and a parked slot's state advances until the slot is
+    refilled."""
+    _require_ported(cfg)
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens)
     # the reference's jnp.asarray(np.sqrt(d), x.dtype): the fp32-rounded
     # factor, as a Python scalar (a tensor built on the card would stall
     # the stream on its host copy)
     x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype))
-    positions = decode_positions(index, B, S, x.device)
-    windows = layer_windows(cfg, cfg.num_layers, force_window)
-    x, new_kv = dense_stack_decode(params["layers"], x, positions, cfg, windows,
-                                   caches["kv"], index, fresh_cache)
-    return L.apply_norm(cfg.norm, params["final_norm"], x), {"kv": new_kv}
+    if cfg.family == "ssm":
+        x, new_ssm = mamba_stack_decode(params["layers"], x, cfg, caches["ssm"])
+        new_caches = {"ssm": new_ssm}
+    else:
+        positions = decode_positions(index, B, S, x.device)
+        windows = layer_windows(cfg, cfg.num_layers, force_window)
+        x, new_kv = dense_stack_decode(params["layers"], x, positions, cfg, windows,
+                                       caches["kv"], index, fresh_cache)
+        new_caches = {"kv": new_kv}
+    return L.apply_norm(cfg.norm, params["final_norm"], x), new_caches
 
 
 def decode_step(cfg: ModelConfig, params, tokens, caches, index, force_window=False,

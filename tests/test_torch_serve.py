@@ -1,4 +1,4 @@
-"""The port's serving slice against the JAX package's.
+"""The port's serving slices (dense and ssm families) against the JAX package's.
 
 Both packages get the same parameters (the reference's ``init_params``
 output, carried over by ``params_from_numpy``) and the same numpy prompts.
@@ -94,14 +94,14 @@ def test_model_config_and_registry_match_reference():
     jf = {f.name: f.default for f in dataclasses.fields(JaxModelConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     assert tf == jf
-    assert list_configs() == ["gemma3-1b", "stablelm-1.6b"]
+    assert list_configs() == ["falcon-mamba-7b", "gemma3-1b", "stablelm-1.6b"]
     for name in list_configs():
         for smoke in (False, True):
             got, want = get_config(name, smoke), jax_get_config(name, smoke)
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
             assert got.param_count() == want.param_count()
             assert got.resolved_head_dim == want.resolved_head_dim
-    for name in ("deepseek-v3-671b", "falcon-mamba-7b", "whisper-medium"):
+    for name in ("deepseek-v3-671b", "zamba2-2.7b", "whisper-medium"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(name)
     with pytest.raises(KeyError, match="unknown arch"):
@@ -401,6 +401,104 @@ def test_engine_refuses_unported_features():
 
 
 # ---------------------------------------------------------------------------
+# The ssm family: falcon-mamba-7b smoke
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "falcon-mamba-7b"
+
+
+def _logits_close(got, want):
+    """Logits within 1e-4 of the largest |logit|."""
+    want = np.asarray(want, np.float64)
+    err = np.abs(np.asarray(got, np.float64) - want).max()
+    assert err <= 1e-4 * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("cache", ["f32", "int8"])
+@pytest.mark.parametrize("prefill", [8, 64, 300])
+def test_ssm_decode_step_matches_reference(prefill, cache):
+    """A prefill block of 8, 64 or 300 tokens (300: two 256-step chunks, the
+    second padded), then single tokens, the last with a [B] vector index
+    (which the ssm family ignores): logits within 1e-4 of the largest
+    |logit|, f32 states within 1e-5; int8 codes within one step and scales
+    within 1e-5."""
+    jcfg, cfg = _configs(SSM_ARCH)
+    jp, tp = _params(SSM_ARCH)
+    dt, jdt = {"f32": (torch.float32, jnp.float32), "int8": (torch.int8, jnp.int8)}[cache]
+    B, CL = 2, 512
+    toks = np.random.RandomState(prefill).randint(0, cfg.vocab_size,
+                                                  (B, prefill + 3)).astype(np.int32)
+    jc = JT.init_decode_caches(jcfg, B, CL, jdt)
+    tc = T.init_decode_caches(cfg, B, CL, dt)
+    assert list(tc) == ["ssm"] and len(tc["ssm"]) == len(jc["ssm"])
+    steps = [(toks[:, :prefill], 0), (toks[:, prefill: prefill + 1], prefill),
+             (toks[:, prefill + 1: prefill + 2], prefill + 1),
+             (toks[:, prefill + 2:], np.array([prefill + 2, CL], np.int32))]
+    for t, idx in steps:
+        jidx = jnp.asarray(idx) if isinstance(idx, np.ndarray) else jnp.int32(idx)
+        tidx = torch.from_numpy(idx) if isinstance(idx, np.ndarray) else idx
+        jl, jc = JT.decode_step(jcfg, jp, jnp.asarray(t), jc, jidx)
+        tl, tc = T.decode_step(cfg, tp, torch.from_numpy(t), tc, tidx)
+        _logits_close(tl.numpy(), jl)
+        for g, w in zip(tc["ssm"], jc["ssm"]):
+            assert tuple(g.shape) == w.shape and str(g.dtype).split(".")[-1] == str(w.dtype)
+            if g.dtype == torch.int8:
+                assert np.abs(g.numpy().astype(np.int32) - np.asarray(w, np.int32)).max() <= 1
+            else:
+                _close(g.numpy(), w)
+
+
+def test_ssm_engine_matches_reference_and_sequential():
+    """A 300-token prompt pair and shorter prompts through 2 slots: more
+    requests than slots, so ``serve_insert`` copies "ssm" rows into freed
+    slots mid-run; greedy tokens equal the reference engine's and each
+    request's solo sequential oracle, exactly."""
+    _, cfg = _configs(SSM_ARCH)
+    _, tp = _params(SSM_ARCH)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in (300, 300, 12, 12)]
+    max_new = [3, 6, 4, 5]
+    ((jt, _), (tt, trep)), teng = _engine_pair(SSM_ARCH, prompts, max_new, 2, "f32", 2)
+    assert tt == jt
+    assert trep["generated_tokens"] == sum(max_new)
+    for p, n, got in zip(prompts, max_new, tt):
+        assert E.sequential_generate(cfg, tp, p[None], n)[0].tolist() == got
+    counts = teng.compile_counts()
+    assert counts["insert_buckets"] == counts["insert_compiles"] >= 2
+
+
+def test_ssm_insert_copies_state_rows():
+    """``serve_insert`` copies the "ssm" group's rows (the batch axis is 1
+    of the layer-stacked leaves) and drops pad rows."""
+    _, cfg = _configs(SSM_ARCH)
+    _, tp = _params(SSM_ARCH)
+    eng = E.ServeEngine(cfg, tp, max_batch=3, cache_dtype=torch.int8)
+    eng._ensure_state(16)
+    dec = eng._state["caches"]
+    before = [c.clone() for c in dec["ssm"]]
+    pre = T.init_decode_caches(cfg, 2, 16, torch.int8)
+    assert len(pre["ssm"]) == 4
+    for c in pre["ssm"]:
+        c.copy_((torch.arange(c.numel()) % 100).reshape(c.shape).to(c.dtype))
+    eng._insert_fn(2)(dec, pre, np.array([2, 3], np.int32))
+    for d, p, b in zip(dec["ssm"], pre["ssm"], before):
+        assert torch.equal(d[:, 2], p[:, 0])
+        assert torch.equal(d[:, :2], b[:, :2])
+
+
+@pytest.mark.parametrize("extra", [[], ["--sequential"], ["--cache-dtype", "int8"]])
+def test_ssm_serve_cli_runs_on_cpu(extra, capsys):
+    report = serve.main(["--device", "cpu", "--arch", SSM_ARCH, "--batch", "2",
+                         "--prompt-len", "40", "--gen", "6"] + extra)
+    assert json.loads(capsys.readouterr().out) == report
+    assert report["arch"] == SSM_ARCH and len(report["sample_output"]) == 6
+    if "--sequential" not in extra:
+        assert REF_REPORT_KEYS <= set(report)
+        assert report["generated_tokens"] == 12
+        assert report["compiled_executors"]["prefill_buckets"] == 2  # blocks of 32 and 8
+
+
+# ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
 
@@ -439,7 +537,7 @@ def test_serve_cli_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("flags", [["--spec-gamma", "2"], ["--prefix-cache"],
-                                   ["--arch", "deepseek-v3-671b"]])
+                                   ["--arch", "deepseek-v3-671b"], ["--arch", "zamba2-2.7b"]])
 def test_serve_cli_refuses_unported(flags, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(["--device", "cpu"] + flags)
@@ -447,13 +545,18 @@ def test_serve_cli_refuses_unported(flags, capsys):
 
 
 def test_profile_serve_splits_device_time():
-    """The flash kernel, GEMM-like kernels and the rest, by kernel name; a
-    copy is never a kernel."""
+    """The flash and scan kernels, GEMM-like kernels and the rest, by kernel
+    name; a copy is never a kernel."""
     intervals = [
         ("kernel", "void (anonymous namespace)::flash_fwd_kernel<256, float>(float const*)", 0.0, 5.0),
         ("kernel", "sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x32", 5.0, 7.0),
         ("kernel", "void at::native::vectorized_elementwise_kernel<4>", 12.0, 1.0),
         ("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 13.0, 2.0),
+        ("kernel", "void (anonymous namespace)::ssm_scan_kernel<float, float>(float const*)",
+         15.0, 4.0),
+        ("kernel", "void (anonymous namespace)::ssm_scan_kernel<float, float>(float const*)",
+         19.0, 0.5),
     ]
     assert kernel_split(intervals) == {"flash_us": 5.0, "gemm_us": 7.0, "other_us": 3.0,
-                                       "flash_launches": 1}
+                                       "flash_launches": 1, "scan_us": 4.5,
+                                       "scan_launches": 2}

@@ -157,6 +157,8 @@ def test_package_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert len(mods) >= 30
     assert {"repro_torch.configs.gemma3_1b", "repro_torch.configs.stablelm_1_6b",
+            "repro_torch.configs.falcon_mamba_7b", "repro_torch.kernels.ssm_scan",
+            "repro_torch.models.ssm",
             "repro_torch.kernels.flash_attention", "repro_torch.launch.engine",
             "repro_torch.launch.serve", "repro_torch.models.attention",
             "repro_torch.models.mlp", "repro_torch.models.quant",
