@@ -39,9 +39,14 @@ Serving (after phase 2b, 3c and 4b respectively):
   2c. the flash-attention kernel against its plain PyTorch version on the
      card: [8, 4096, 256] (gemma3-1b's prefill) with windows 0 and 1024,
      [64, 4096, 64] (stablelm-1.6b's head_dim), a ragged [3, 2500, 128],
-     [5, 1000, 32], and bf16; within 2e-5 + 2e-5·|plain| in fp32 and
-     2e-2 + 2e-2·|plain| in bf16, with the kernel's, the plain version's
-     and F.scaled_dot_product_attention's times beside the bound;
+     [5, 1000, 32], and bf16; tile edges at BH = 2: S in {1, 63, 65, 129,
+     4097} at D = 256 (fp32, bf16) and D = 64 (bf16), windows 1, = S and
+     > S; within 2e-5 + 2e-5·|plain| in fp32 and 2e-2 + 2e-2·|plain| in
+     bf16, with the kernel's, the plain version's and
+     F.scaled_dot_product_attention's times beside the tensor-core route's
+     bound (3xTF32 at the TF32 rate for fp32, the bf16 rate for bf16) and
+     the old bound of fp32 outside the tensor cores. Phase 1 also checks
+     that ptxas reports no spills for any flash instantiation;
   3d. the serving path at full width: ``repro_torch.launch.serve`` with
      --arch gemma3-1b --full --batch 2 --prompt-len 4096 --gen 32, the
      launch counters zeroed just before and read just after: exactly 26
@@ -134,6 +139,8 @@ ADAPTIVE_ARGV = ["--adaptive", "--dp-clip", "1", "--dp-sigma", "1", "--epsilon",
 # bf16 dense tensor-core rate, FLOP/s, matched as CARD_RATES is
 CARD_BF16_RATES = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12),
                    ("H200", 989e12))
+# TF32 dense tensor-core rate: half the bf16 rate
+CARD_TF32_RATES = tuple((key, rate / 2) for key, rate in CARD_BF16_RATES)
 MAIN_ROUNDS = 10
 # (name, BH, S, D, window, dtype); the first two are the serving path's
 FLASH_CASES = (
@@ -145,6 +152,16 @@ FLASH_CASES = (
     ("head_dim 32, window 100", 5, 1000, 32, 100, torch.float32),
     ("gemma3-1b prefill bf16, global layer", 8, 4096, 256, 0, torch.bfloat16),
     ("gemma3-1b prefill bf16, local layer", 8, 4096, 256, 1024, torch.bfloat16),
+    # tile edges: S around the 64-row query tile and the 32/64-key KV tiles
+    *((f"tile edge S={S}{sfx}", 2, S, D, 0, dtype)
+      for S in (1, 63, 65, 129, 4097)
+      for D, dtype, sfx in ((256, torch.float32, ""), (256, torch.bfloat16, " bf16"),
+                            (64, torch.bfloat16, " D=64 bf16"))),
+    ("tile edge, window 1", 2, 129, 256, 1, torch.float32),
+    ("tile edge, window 1 bf16", 2, 129, 256, 1, torch.bfloat16),
+    ("tile edge, window 1, S=4097", 2, 4097, 256, 1, torch.float32),
+    ("tile edge, window = S", 2, 65, 256, 65, torch.float32),
+    ("tile edge, window > S, D=64 bf16", 2, 4097, 64, 5000, torch.bfloat16),
 )
 SERVE_ARGV = ["--arch", "gemma3-1b", "--full", "--batch", "2", "--prompt-len", "4096",
               "--gen", "32"]
@@ -339,15 +356,26 @@ def flash_pairs(S: int, window: int) -> int:
     return int((torch.clamp(i, max=window) if window > 0 else i).sum())
 
 
-def flash_bound_ms(BH, S, D, window, dtype, bw, flops):
-    """Least time for one flash call: 4·D operations per unmasked pair at
-    the card's peak rate for the input type (fp32 outside the tensor cores;
-    bf16 on them), against q, k, v read once and the output written once.
-    Returns (bound_ms, bound_by)."""
+def flash_bound_ms(BH, S, D, window, dtype, bw, flops, passes: int = 1):
+    """Least time for one flash call: 4·D operations per unmasked pair,
+    ``passes`` times, at the rate ``flops``, against q, k, v read once and
+    the output written once. Returns (bound_ms, bound_by)."""
     elem = torch.finfo(dtype).bits // 8
     t_bytes = 4 * BH * S * D * elem / bw * 1e3
-    t_ops = BH * flash_pairs(S, window) * 4 * D / flops * 1e3
+    t_ops = passes * BH * flash_pairs(S, window) * 4 * D / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_no_spills(src: str) -> None:
+    """Every kernel of ``src`` fits its registers: ptxas reports 0 spill
+    bytes (stores and loads) for each entry function."""
+    rows = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      build.build_log(src))
+    check(bool(rows), f"{src}: no ptxas report in the build log")
+    check(all(st == "0" and ld == "0" for _, st, ld in rows),
+          f"{src}: ptxas reports spills (stack frame, stores, loads): {rows}")
+    print(f"[build] {src}: {len(rows)} kernels, 0 spill bytes; stack frames "
+          f"{[int(frame) for frame, _, _ in rows]} bytes")
 
 
 def sdpa_yardstick(q, k, v, window: int):
@@ -369,6 +397,7 @@ def check_flash_kernel(device, name):
     fp32 difference at the serving path's shape."""
     bw, flops32 = card_rates(name)
     flops16 = next(r for key, r in CARD_BF16_RATES if key in name)
+    flops_tf32 = next(r for key, r in CARD_TF32_RATES if key in name)
     results = {}
     for case, BH, S, D, window, dtype in FLASH_CASES:
         g = torch.Generator(device=device).manual_seed(BH * S + D + window)
@@ -389,15 +418,22 @@ def check_flash_kernel(device, name):
         ms = device_ms(lambda: flash_attention_cuda(q, k, v, window=window), inner=5, reps=7)
         plain_ms = device_ms(lambda: flash_attention_ref(q, k, v, window=window), inner=2, reps=5)
         library_ms = device_ms(lib, inner=5, reps=7)
-        bound, bound_by = flash_bound_ms(BH, S, D, window, dtype, bw,
-                                         flops32 if dtype == torch.float32 else flops16)
+        # the route's bound: 3xTF32 (three TF32 passes) for fp32, bf16 wgmma
+        # for bf16; beside it the bound of fp32 outside the tensor cores
+        if dtype == torch.float32:
+            bound, bound_by = flash_bound_ms(BH, S, D, window, dtype, bw, flops_tf32, passes=3)
+        else:
+            bound, bound_by = flash_bound_ms(BH, S, D, window, dtype, bw, flops16)
+        simt, _ = flash_bound_ms(BH, S, D, window, dtype, bw, flops32)
         res = {"max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
         results[case] = res
         print(f"[flash] {case}: shape=[{BH}, {S}, {D}] window={window} dtype={dtype} "
               f"max_abs_err={res['max_abs_err']} (tol {tol} + {tol}·|plain|) kernel_ms={ms} "
               f"plain_ms={plain_ms} library_ms={library_ms} (sdpa max_abs_err {lib_err}) "
-              f"bound_ms={bound} ({bound_by}) kernel/bound={ms / bound}")
+              f"bound_ms={bound} ({bound_by}, tensor-core route) kernel/bound={ms / bound} "
+              f"simt_bound_ms={simt} (fp32 outside the tensor cores) "
+              f"kernel/library={ms / library_ms}")
         del q, k, v, got, want, err
     main_err = max(results[c[0]]["max_abs_err"] for c in FLASH_CASES[:2])
     return results[FLASH_CASES[0][0]], main_err
@@ -641,6 +677,7 @@ def main() -> int:
     print(f"[build] nvcc seconds per source: {seconds}; all: {time.perf_counter() - t0}")
     for src in seconds:
         print(f"[build] {src}: {build.build_log(src).strip()}")
+    check_no_spills("flash_attention")
 
     # -- phase 2: kernel against plain, bit for bit -----------------------
     mat, k_rows, len_rows, levels = main_message(device)

@@ -9,8 +9,11 @@ unchanged one is reused.
 Flags: ``sm_90a`` (Hopper, with its ``wgmma``/``setmaxnreg`` target), and
 ``--fmad=false`` with no fast math, so that the compress and scan kernels
 round exactly as their plain PyTorch versions do. The flash-attention kernel,
-held to a tolerance instead, asks for its fused multiply-adds explicitly
-(``fmaf``), which the flag leaves alone.
+held to a tolerance instead, does its products on the tensor cores
+(``wgmma`` for bf16, ``mma.sync`` 3xTF32 for fp32), which the flag does not
+touch; it gets ``cuTensorMapEncodeTiled`` through the runtime's
+``cudaGetDriverEntryPoint``, so no library links ``libcuda``. ``-Xptxas=-v``
+writes each kernel's registers and spills into the build log.
 """
 from __future__ import annotations
 

@@ -6,7 +6,12 @@ is held against the Pallas kernel run in interpret mode, as
 2e-5 in fp32, 2e-2 in bf16 (the JAX package's own tolerances for its
 kernel). The GQA wrapper, ``_long_prefill_attention`` and ``gqa_forward``
 with a fresh cache are held against the reference's within 1e-5. The CUDA
-kernel against the plain version runs only on the card (``gpu`` marker).
+kernel against the plain version runs only on the card (``gpu`` marker);
+its arithmetic is emulated here instead: tile by tile with the kernel's
+online softmax, fp32 products as 3xTF32 (hi = rna_tf32(x), lo =
+rna_tf32(x - hi), lo.hi + hi.lo + hi.hi in fp32) and bf16 P.V with P
+rounded to bf16, held against the Pallas kernel and the plain version
+within the same tolerances; one-pass TF32 misses the fp32 tolerance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -167,3 +172,127 @@ def test_kernel_matches_plain_on_the_card(shape, window, dtype):
     err = (got.float() - want.float()).abs()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert bool((err <= tol + tol * want.float().abs()).all()), float(err.max())
+
+
+# ---- the CUDA kernel's arithmetic, emulated on the CPU ---------------------
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: add half a tf32 ulp to the
+    bits and clear the 13 low ones."""
+    bits = x.detach().contiguous().numpy().view(np.uint32)
+    return torch.from_numpy(((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32: each operand split into hi and lo, lo.lo dropped,
+    the small terms summed first, all in fp32."""
+    ah, bh = _rna_tf32(a), _rna_tf32(b)
+    al, bl = _rna_tf32(a - ah), _rna_tf32(b - bh)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _rna_tf32(a) @ _rna_tf32(b)
+
+
+def _emulate_kernel(q, k, v, window, mm, block_k, p_bf16=False):
+    """The kernel's tiling on fp32 tensors [BH, S, D]: 64-row query tiles,
+    ``block_k``-key tiles from the window's first one, scores scaled and
+    masked with NEG_INF = -2e38, an online softmax (m, l in fp32), P.V with
+    P rounded to bf16 where ``p_bf16``; products through ``mm``."""
+    BH, S, D = q.shape
+    scale = D ** -0.5
+    out = torch.empty_like(q)
+    for q0 in range(0, S, 64):
+        rows = torch.arange(q0, min(q0 + 64, S))
+        m = torch.full((BH, len(rows), 1), -2e38)
+        l = torch.zeros_like(m)
+        o = torch.zeros(BH, len(rows), D)
+        first = max(0, q0 - window + 1) if window > 0 else 0
+        for k0 in range(first // block_k * block_k, int(rows[-1]) + 1, block_k):
+            keys = torch.arange(k0, min(k0 + block_k, S))
+            s = mm(q[:, rows], k[:, keys].transpose(1, 2)) * scale
+            ok = keys[None, :] <= rows[:, None]
+            if window > 0:
+                ok &= keys[None, :] > rows[:, None] - window
+            s = torch.where(ok, s, torch.tensor(-2e38))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
+            l, m = l * corr + p.sum(-1, keepdim=True), m_new
+            if p_bf16:
+                p = p.to(torch.bfloat16).float()
+            o = o * corr + mm(p, v[:, keys])
+        out[:, rows] = o / l
+    return out
+
+
+def _within(got, want, tol):
+    """The card's criterion: |got - want| <= tol + tol·|want| everywhere."""
+    err = (got.float() - want.float()).abs()
+    return float((err - tol - tol * want.float().abs()).max())
+
+
+@pytest.mark.parametrize("S,D,window", [(256, 64, 0), (200, 256, 0), (300, 64, 70),
+                                        (129, 256, 33), (65, 128, 100)])
+def test_3xtf32_emulation_matches_pallas_and_plain(S, D, window):
+    """The fp32 route (3xTF32 products, 32-key tiles) against the Pallas
+    kernel in interpret mode and the plain version, within 2e-5."""
+    q, k, v = _qkv(3 * S + D + window, (2, S, D))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = _emulate_kernel(tq, tk, tv, window, _mm_3xtf32, 32)
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  window=window, block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+    assert _within(got, flash_attention_ref(tq, tk, tv, window=window), 2e-5) <= 0
+
+
+@pytest.mark.parametrize("S,D,window", [(256, 256, 0), (200, 64, 40), (129, 32, 1)])
+def test_bf16_emulation_matches_pallas_and_plain(S, D, window):
+    """The bf16 route (bf16 inputs, fp32 scores, P rounded to bf16 before
+    P.V, 64-key tiles) against the Pallas kernel on bf16 inputs and the
+    plain version, within 2e-2."""
+    q, k, v = _qkv(5 * S + D + window, (2, S, D))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = _emulate_kernel(tq.float(), tk.float(), tv.float(), window, torch.matmul, 64,
+                          p_bf16=True).to(torch.bfloat16)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    want = flash_attention_pallas(jq, jk, jv, window=window, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=2e-2)
+    assert _within(got, flash_attention_ref(tq, tk, tv, window=window), 2e-2) <= 0
+
+
+def test_one_pass_tf32_misses_the_fp32_tolerance():
+    """Why the fp32 route splits: the same tiling with one TF32 pass is
+    about 50 times over the fp32 tolerance, with three it is inside it."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(11, (2, 256, 256)))
+    want = flash_attention_ref(q, k, v)
+    assert _within(_emulate_kernel(q, k, v, 0, _mm_3xtf32, 32), want, 2e-5) <= 0
+    assert _within(_emulate_kernel(q, k, v, 0, _mm_1xtf32, 32), want, 2e-5) > 10 * 2e-5
+
+
+def test_rna_tf32_rounds_ties_away_and_splits_exactly():
+    one_ulp = 2.0 ** -10  # tf32's ulp at 1
+    x = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 4, 3.0],
+                     dtype=torch.float32)
+    assert _rna_tf32(x).tolist() == [1 + one_ulp, -(1 + one_ulp), 1.0, 3.0]
+    r = torch.from_numpy(_normal(3, (1000,)) * 100)
+    hi = _rna_tf32(r)
+    lo = r - hi
+    assert torch.equal(hi + lo, r)  # x - hi is exact in fp32
+    assert bool(((r - hi - _rna_tf32(lo)).abs() <= 2.0 ** -22 * r.abs()).all())
+
+
+def test_flash_source_uses_the_tensor_cores():
+    """Both routes' products are tensor-core instructions, K/V tiles come
+    through TMA and mbarriers, and the only block-wide barrier is the one
+    after the barriers' set-up."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    for instr in ("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                  "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                  "cp.async.bulk.tensor.3d", "mbarrier.try_wait.parity",
+                  "cudaGetDriverEntryPoint"):
+        assert instr in src, instr
+    assert src.count("__syncthreads()") == 1
+    assert "fmaf(" not in src
