@@ -6,15 +6,23 @@
 Phases, in order; any failure raises and the script exits nonzero:
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
      the nvcc build of every kernel source in src/repro_torch/csrc/ (one
-     nvcc per source, all started together);
+     nvcc per source, all started together); ptxas must report no spills
+     for the flash and compress kernels;
   2. the compress kernel against its plain PyTorch version on the card, at
-     the main path's shape (also with NaN rows) and at a large ragged shape:
-     bit-identical (torch.equal), with device times (CUDA graph replays
-     timed by CUDA events) beside the least time the card could take;
+     the main path's shape (also with NaN rows) and at a large ragged shape
+     (levels 0, 16, 128): bit-identical (torch.equal), with device times
+     (CUDA graph replays timed by CUDA events) beside the least time the
+     card could take and the launch floor (a one-element zero_() timed the
+     same way); then the edge-case matrix: widths 1 to 4000 (every
+     register bucket, non-multiples of 32, the shared-memory body past
+     1024) with k <= 0, k >= len, len = 0, tied magnitudes, ±inf, NaN,
+     all-zero rows, subnormals and values near the fp32 maximum, at levels
+     0, 16 and 128 (torch.equal; NaN only where both versions give NaN);
   2b. the same for the DP compress kernel (clip C, noise multiplier σ):
      the main message with noise from a CUDA generator (C=1, σ=1), the
-     large ragged shape (σ=0.5), NaN rows, and σ=0 with C=1e30 against the
-     non-DP kernel; its time over the non-DP kernel's at the same shape;
+     large ragged shape (σ=0.5), NaN rows, the edge-case matrix (σ=0.5),
+     and σ=0 with C=1e30 against the non-DP kernel; its time over the
+     non-DP kernel's at the same shape;
   3. the main path: ``repro_torch.launch.train.run_ehealth`` — paper-cnn,
      organamnist, c-hsgd (k=0.25, b=128), M=10, K=64, α=0.25, 2048 samples,
      P=4, Q=2, 10 rounds — with the launch counters zeroed just before and
@@ -87,7 +95,6 @@ import math
 import os
 import re
 import resource
-import statistics
 import subprocess
 import sys
 import time
@@ -113,11 +120,13 @@ from repro_torch.core.controller import (  # noqa: E402
 from repro_torch.core.hsgd import exchange, init_state  # noqa: E402
 from repro_torch.kernels import build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.compress import fused_compress, stack_rows  # noqa: E402
+from repro_torch.kernels.compress_cases import EDGE_WIDTHS, edge_case_rows, same_values  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
                                                  flash_attention_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import ServeEngine  # noqa: E402
+from repro_torch.launch.timing import device_ms  # noqa: E402
 from repro_torch.launch.train import parse_args, run_ehealth, setup_ehealth  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -197,33 +206,6 @@ def card_rates(name: str):
     raise RuntimeError(f"chip_smoke: no data-sheet rates for card {name!r}")
 
 
-def device_ms(fn, inner: int = 20, reps: int = 21) -> float:
-    """Median device time of one ``fn()`` in ms: ``inner`` calls captured in a
-    CUDA graph, the graph replayed ``reps`` times between CUDA events, so the
-    host's launch overhead is out of the measurement."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the default stream
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
-
-
 def compress_bound_ms(mat, row_len, levels: int, bw: float, flops: float, dp: bool = False):
     """Least time for one fused compress: bytes (each row's valid prefix read
     once, and with DP as much again of noise; the whole matrix written once
@@ -240,10 +222,11 @@ def compress_bound_ms(mat, row_len, levels: int, bw: float, flops: float, dp: bo
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_compress(name, mat, k_rows, len_rows, levels, bw, flops, dp=None):
-    """Kernel vs plain version on one input: bit-identical, then timed.
-    ``dp`` = (clip, sigma, noise), all on the card, selects the DP kernel;
-    its time is then also set against the non-DP kernel's on the input."""
+def compare_compress(name, mat, k_rows, len_rows, levels, bw, flops, floor_ms, dp=None):
+    """Kernel vs plain version on one input: bit-identical, then timed, with
+    the launch floor ``floor_ms`` beside it. ``dp`` = (clip, sigma, noise),
+    all on the card, selects the DP kernel; its time is then also set
+    against the non-DP kernel's on the input."""
     dp_args = () if dp is None else dp
     got = fused_compress(mat, k_rows, levels, len_rows, *dp_args)
     want = compress_rows_ref(mat, k_rows, levels, len_rows, *dp_args)
@@ -260,8 +243,9 @@ def compare_compress(name, mat, k_rows, len_rows, levels, bw, flops, dp=None):
         extra = f" non_dp_kernel_ms={row1_ms} dp_over_non_dp={ms / row1_ms}"
     print(f"[kernel] {name}: shape={tuple(mat.shape)} levels={levels} nnz={nnz} "
           f"bit-identical max_abs_err={err} kernel_ms={ms} plain_ms={plain_ms} "
-          f"bound_us={bound * 1e3} ({bound_by}){extra} library_ms=null (no single "
-          f"PyTorch call computes this function)")
+          f"bound_us={bound * 1e3} ({bound_by}) bound/kernel={bound / ms} "
+          f"launch_floor_ms={floor_ms} kernel/floor={ms / floor_ms}{extra} library_ms=null "
+          f"(no single PyTorch call computes this function)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by}
 
@@ -326,19 +310,43 @@ def dp_operands(mat, clip: float, sigma: float, seed: int = 1):
     return as_t(clip), as_t(sigma), noise
 
 
-def check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops):
+def check_edge_cases(device, dp: bool):
+    """The compress kernel (``dp``: the DP kernel, C=1, σ=0.5) against its
+    plain version on every edge case at every width in EDGE_WIDTHS (every
+    register bucket of 1..32 values a lane, non-multiples of 32, and the
+    shared-memory body past 1024) and levels 0, 16 and 128."""
+    checked = 0
+    for n in EDGE_WIDTHS:
+        mat, k_rows, len_rows = (t.to(device) for t in edge_case_rows(n))
+        dp_args = dp_operands(mat, 1.0, 0.5) if dp else ()
+        for lv in (0, 16, 128):
+            got = fused_compress(mat, k_rows, lv, len_rows, *dp_args)
+            want = compress_rows_ref(mat, k_rows, lv, len_rows, *dp_args)
+            torch.cuda.synchronize()
+            if not same_values(got, want):
+                bad = [r for r in range(mat.shape[0]) if not same_values(got[r], want[r])]
+                check(False, f"edge cases n={n} levels={lv}{' DP' if dp else ''}: kernel "
+                             f"differs from plain in rows {bad} (k={k_rows[bad].tolist()}, "
+                             f"len={len_rows[bad].tolist()})")
+            checked += mat.shape[0]
+    print(f"[kernel] {'DP ' if dp else ''}edge cases: {checked} rows at widths {EDGE_WIDTHS} "
+          f"x levels 0, 16, 128: equal to plain (torch.equal; NaN where both are NaN)")
+
+
+def check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops, floor_ms):
     """Phase 2b: the DP kernel against its plain version; returns the main
     message's comparison and the largest difference seen."""
     main_dp = compare_compress("DP main-path message C=1 sigma=1", mat, k_rows, len_rows,
-                               levels, bw, flops, dp_operands(mat, 1.0, 1.0))
+                               levels, bw, flops, floor_ms, dp_operands(mat, 1.0, 1.0))
     max_err = main_dp["max_abs_err"]
     check_nan_rows(mat, k_rows, len_rows, levels, dp_operands(mat, 1.0, 1.0))
     for k_frac in (0.1, 0.25):
         big = large_ragged(device=mat.device, k_frac=k_frac)
-        for lv in (0, 128):
+        for lv in (0, 16, 128):
             res = compare_compress(f"DP large ragged k={k_frac} C=1 sigma=0.5", *big, lv, bw,
-                                   flops, dp_operands(big[0], 1.0, 0.5))
+                                   flops, floor_ms, dp_operands(big[0], 1.0, 0.5))
             max_err = max(max_err, res["max_abs_err"])
+    check_edge_cases(mat.device, dp=True)
     for name, (m, k, ln) in (("main-path message", (mat, k_rows, len_rows)),
                              ("large ragged k=0.25", large_ragged(mat.device, 0.25))):
         for lv in sorted({0, levels}):
@@ -678,22 +686,29 @@ def main() -> int:
     for src in seconds:
         print(f"[build] {src}: {build.build_log(src).strip()}")
     check_no_spills("flash_attention")
+    check_no_spills("compress")
 
     # -- phase 2: kernel against plain, bit for bit -----------------------
     mat, k_rows, len_rows, levels = main_message(device)
     check(tuple(mat.shape) == (2900, 128), f"main-path message shape {tuple(mat.shape)}")
     check(sorted(set(len_rows.tolist())) == [11, 64, 128], "main-path widths")
-    main_cmp = compare_compress("main-path message", mat, k_rows, len_rows, levels, bw, flops)
+    one = torch.zeros(1, device=device)
+    floor_ms = device_ms(one.zero_)
+    print(f"[kernel] launch floor: a one-element zero_() takes {floor_ms} ms (CUDA graph "
+          f"replays, as every kernel time below)")
+    main_cmp = compare_compress("main-path message", mat, k_rows, len_rows, levels, bw, flops,
+                                floor_ms)
     max_err = main_cmp["max_abs_err"]
     check_nan_rows(mat, k_rows, len_rows, levels)
     for k_frac in (0.1, 0.25):
         big = large_ragged(device, k_frac)
         for lv in (0, 16, 128):
-            res = compare_compress(f"large ragged k={k_frac}", *big, lv, bw, flops)
+            res = compare_compress(f"large ragged k={k_frac}", *big, lv, bw, flops, floor_ms)
             max_err = max(max_err, res["max_abs_err"])
+    check_edge_cases(device, dp=False)
 
     # -- phase 2b: the DP kernel against plain, bit for bit ------------------
-    main_dp, max_err_dp = check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops)
+    main_dp, max_err_dp = check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops, floor_ms)
 
     # -- phase 2c: the flash-attention kernel against plain ------------------
     flash_main, max_err_flash = check_flash_kernel(device, name)

@@ -184,8 +184,31 @@ def sample_participants(generator: torch.Generator, fed: FederationConfig,
     return idx.to(device)
 
 
+def _fill_value(dtype: torch.dtype):
+    """What ``jnp.take`` reads past the end: NaN for floats, the least value
+    for signed integers, the largest for unsigned ones, True for bools."""
+    if dtype == torch.bool:
+        return True
+    if dtype.is_floating_point:
+        return float("nan")
+    info = torch.iinfo(dtype)
+    return info.min if dtype.is_signed else info.max
+
+
 def gather_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """data: {x1,x2,y,valid} with leading [M, K]; idx: [M, A] -> [M, A, ...]."""
+    """data: {x1,x2,y,valid} with leading [M, K]; idx: [M, A] -> [M, A, ...].
+
+    As the reference's ``jnp.take``, an index at or past K reads the fill
+    value of the leaf's type (``_fill_value``). That happens when a group's
+    data holds fewer devices than ``devices_per_group``, among which the
+    participants are drawn."""
     idx = idx.long()
     rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
-    return {k: v[rows, idx] for k, v in data.items()}
+    out = {}
+    for k, v in data.items():
+        K = v.shape[1]
+        got = v[rows, idx.clamp(max=K - 1)]
+        inside = (idx < K).reshape(idx.shape + (1,) * (got.dim() - 2))
+        out[k] = torch.where(inside, got, torch.tensor(_fill_value(v.dtype), dtype=v.dtype,
+                                                       device=v.device))
+    return out

@@ -89,7 +89,14 @@ def combined_forward(params, z1, z2):
 
 
 def classification_loss(logits, labels):
-    """Mean cross-entropy, computed in fp32 whatever the logits' dtype."""
+    """Mean cross-entropy, computed in fp32 whatever the logits' dtype.
+
+    As the reference's ``jnp.take_along_axis``, a negative label counts from
+    the end and one outside [-C, C) reads NaN (a label gathered from past a
+    group's data holds ``federation.gather_batch``'s fill value)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels.long()[:, None])[:, 0]
-    return -torch.mean(ll)
+    C = logp.shape[-1]
+    lab = labels.long()[:, None]
+    lab = torch.where(lab < 0, lab + C, lab)
+    ll = torch.gather(logp, -1, lab.clamp(0, C - 1))
+    return -torch.mean(torch.where((lab >= 0) & (lab < C), ll, float("nan"))[:, 0])

@@ -29,7 +29,9 @@ def lstm_forward(params, x):
     B, T = x.shape[:2]
     wh = params["wh"].to(x.dtype)
     H = wh.shape[0]
-    xg = torch.matmul(x, params["wx"].to(x.dtype)) + params["b"].to(x.dtype)  # [B, T, 4H]
+    # einsum, as the reference writes it: a size-1 feature axis (ESR's
+    # [B, T, 1] slices against a [T, 4H] wx) broadcasts over wx's rows
+    xg = torch.einsum("btf,fk->btk", x, params["wx"].to(x.dtype)) + params["b"].to(x.dtype)
     h = c = x.new_zeros((B, H))
     for t in range(T):
         gates = xg[:, t] + torch.matmul(h, wh)

@@ -11,6 +11,11 @@ what a CPU tensor runs. Tolerances:
   multiply-add, while the port rounds the product and the sum separately
   (as its CUDA kernel does), and the difference lands on the scale of the
   row's range.
+
+The CUDA kernel's bisection (its row layout, one warp-summed count a
+step, the max |x| as an unsigned max of bit patterns) is emulated in numpy
+float32 here and must land on the serial bisection's threshold bits
+exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -26,10 +31,12 @@ from repro_torch.core import compression as TC
 from repro_torch.core.compression import compress_rows_ref, quantize
 from repro_torch.kernels import build, launch_counts, ops, reset_launch_counts
 from repro_torch.kernels.compress import compress_pytree, compress_rows, fused_compress
+from repro_torch.kernels.compress_cases import EDGE_WIDTHS, edge_case_rows, same_values
 from repro_torch.kernels.topk_sparsify import topk_sparsify_cuda
 
 _oracle = jax.jit(jax_compress_rows_ref, static_argnames=("levels",))
 ULP = 2.0 ** -23
+
 
 
 @pytest.fixture(autouse=True)
@@ -44,6 +51,107 @@ def _one_torch_thread():
 
 def _normal(seed, shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _bucket(n):
+    """The kernel's body for a row width: V values a lane (the fewest of 1,
+    2, 4, ..., 32 that hold n), or 0 for the shared-memory body past 1024."""
+    return next((v for v in (1, 2, 4, 8, 16, 32) if n <= 32 * v), 0)
+
+
+def _emulated_threshold(x, k, row_len):
+    """The CUDA kernel's bisection of one row of width n = len(x) in numpy
+    float32. Lane l holds columns l + 32*i: in the register body V slots a
+    lane, loaded whole (padding included) when the row is at most 512
+    bytes, then NaN from row_len on and narrowed to the fewest W in
+    {1, 2, 4, ..., V} slots that hold the valid prefix; in the shared-memory
+    body ceil(row_len/32) slots, NaN past row_len. hi is the unsigned max of
+    the bit patterns bits & 0x7fffffff over the valid columns; each of the
+    16 steps counts |x| >= mid per lane, sums the 32 lane counts as one
+    uint32 (__reduce_add_sync) and moves lo or hi. Returns the threshold lo."""
+    n, V = x.shape[0], _bucket(x.shape[0])
+    if V:
+        W = next(w for w in (1, 2, 4, 8, 16, 32) if w >= V or row_len <= 32 * w)
+        cols = np.arange(32)[:, None] + 32 * np.arange(V)[None, :]
+        whole = V * 32 * 4 <= 512
+        loaded = np.zeros((32, V), np.float32)
+        inside = cols < (n if whole else row_len)
+        loaded[inside] = x[cols[inside]]
+        lanes = np.where(cols < row_len, loaded, np.float32(np.nan))[:, :W]
+        cols = cols[:, :W]
+    else:
+        cols = np.arange(32)[:, None] + 32 * np.arange(-(-row_len // 32))[None, :]
+        lanes = np.full(cols.shape, np.nan, np.float32)
+        lanes[cols < row_len] = x[cols[cols < row_len]]
+    valid = cols < row_len
+    bits = np.where(valid, lanes.view(np.uint32) & np.uint32(0x7FFFFFFF), np.uint32(0))
+    hi = np.array(bits.max(initial=0), np.uint32).view(np.float32)[()]
+    lo, half = np.float32(0.0), np.float32(0.5)
+    for _ in range(16):
+        with np.errstate(invalid="ignore", over="ignore"):
+            mid = half * (lo + hi)
+            cnt = (np.abs(lanes) >= mid).sum(axis=1).astype(np.uint32)
+        lo, hi = (mid, hi) if int(cnt.sum(dtype=np.uint32)) >= k else (lo, mid)
+    return lo
+
+
+def _serial_threshold(x, k, row_len):
+    """compress_rows_ref's 16-step bisection of one row, in numpy float32."""
+    mag = np.abs(x[:row_len])
+    hi, lo = (mag.max() if row_len else np.float32(0.0)), np.float32(0.0)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for _ in range(16):
+            mid = np.float32(0.5) * (lo + hi)
+            lo, hi = (mid, hi) if (mag >= mid).sum() >= k else (lo, mid)
+    return lo
+
+
+def _check_emulation(x, k, row_len):
+    """The emulated threshold has the serial one's bits (NaN: both NaN), and
+    keeping |x| >= it gives compress_rows_ref's output bit for bit."""
+    want, got = _serial_threshold(x, k, row_len), _emulated_threshold(x, k, row_len)
+    assert (np.isnan(got) and np.isnan(want)) or got.view(np.uint32) == want.view(np.uint32), \
+        (got, want)
+    with np.errstate(invalid="ignore"):
+        kept = (np.arange(x.shape[0]) < row_len) & (np.abs(x) >= got)
+    plain = compress_rows_ref(torch.from_numpy(x[None]), k, 0, torch.tensor([row_len]))[0]
+    assert torch.equal(torch.from_numpy(np.where(kept, x, np.float32(0.0))), plain)
+
+
+@pytest.mark.parametrize("V", [0, 1, 2, 4, 8, 16, 32])
+def test_lookahead_emulation_matches_serial_on_edge_rows(V):
+    """The kernel's bisection (look-ahead depth 1: one mid and one REDUX
+    count a step) and unsigned-pattern max, emulated in the layout of the
+    body with V values a lane (0: the shared-memory body), against the
+    serial bisection on every edge-case row of the widths that body takes."""
+    widths = [n for n in EDGE_WIDTHS if _bucket(n) == V]
+    assert widths
+    for n in widths:
+        x, k, row_len = (t.numpy() for t in edge_case_rows(n))
+        for r in range(x.shape[0]):
+            _check_emulation(x[r], int(k[r]), int(row_len[r]))
+
+
+def test_lookahead_emulation_matches_serial_property():
+    """The same on hypothesis rows: ties, zeros of both signs, ±inf, NaN,
+    subnormals, k <= 0 and k > len, any valid length."""
+    hyp = pytest.importorskip("hypothesis")
+    st = hyp.strategies
+    value = st.one_of(
+        st.sampled_from([0.0, -0.0, 1.0, -1.0, 2.0, -2.0, 0.5, np.inf, -np.inf, np.nan,
+                         1e-40, 3e38, -3e38]),
+        st.integers(-4, 4).map(float),
+        st.floats(width=32))
+
+    @hyp.settings(max_examples=300, deadline=None, derandomize=True)
+    @hyp.given(st.lists(value, min_size=1, max_size=100), st.data())
+    def check(vals, data):
+        x = np.array(vals, np.float32)
+        row_len = data.draw(st.integers(0, len(vals)))
+        k = data.draw(st.integers(-3, len(vals) + 3))
+        _check_emulation(x, k, row_len)
+
+    check()
 
 
 def _assert_compress_close(port, want, x, levels):
@@ -197,7 +305,7 @@ def test_nvcc_command_targets_hopper_without_fast_math():
 @pytest.mark.parametrize("levels", [0, 16, 128])
 def test_kernel_matches_plain(levels):
     """The CUDA kernel against the plain version on the card: bit-identical,
-    ragged rows included."""
+    ragged rows and the edge-case matrix included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     widths, rows = [128, 11, 64], 300
@@ -218,6 +326,12 @@ def test_kernel_matches_plain(levels):
     assert torch.equal(topk_sparsify_cuda(dense, 32), compress_rows_ref(dense, 32, 0))
     _assert_compress_close(got.cpu().numpy(), compress_rows_ref(x, k, levels, row_len).numpy(),
                            x.numpy(), levels)
+    for n in EDGE_WIDTHS:  # every register bucket and the shared-memory body
+        xe, ke, le = (t.to(dev) for t in edge_case_rows(n))
+        got = fused_compress(xe, ke, levels, le)
+        want = compress_rows_ref(xe, ke, levels, le)
+        torch.cuda.synchronize()
+        assert same_values(got, want), n
 
 
 def test_message_entry_points_and_byte_model_match_jax():

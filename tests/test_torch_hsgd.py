@@ -25,15 +25,16 @@ from repro.core import baselines as JB
 from repro.core import federation as JF
 from repro.core import hsgd as JH
 from repro.data.partition import hybrid_partition
-from repro.data.synthetic import ORGANAMNIST, make_dataset
+from repro.data.synthetic import ESR, ORGANAMNIST, make_dataset
 from repro.models.split_model import cnn_hybrid as jax_cnn_hybrid
+from repro.models.split_model import lstm_hybrid as jax_lstm_hybrid
 from repro_torch.common.config import FederationConfig, TrainConfig
 from repro_torch.common.pytree import tree_leaves
 from repro_torch.core import baselines as B
 from repro_torch.core import federation as F
 from repro_torch.core import hsgd as H
 from repro_torch.kernels.compress import compress_pytree
-from repro_torch.models.split_model import cnn_hybrid
+from repro_torch.models.split_model import cnn_hybrid, lstm_hybrid
 
 FED = dict(num_groups=2, devices_per_group=16, alpha=0.25, local_interval=2, global_interval=4)
 SEED = 0
@@ -50,23 +51,31 @@ def _one_torch_thread():
 
 
 @functools.lru_cache(maxsize=None)
-def _setup():
+def _setup(dataset="organamnist"):
+    """(JAX fed, port fed, stacked data, JAX model, port model): paper-cnn on
+    OrganAMNIST, or for ``dataset="esr"`` the launcher's ESR paper-lstm
+    (178x1 series split 89/89 into [K, 89, 1] towers, 5 classes)."""
     jfed, tfed = JaxFed(**FED), FederationConfig(**FED)
-    X, y = make_dataset(ORGANAMNIST, 128, seed=SEED)
-    raw = hybrid_partition(ORGANAMNIST, X, y, jfed, seed=SEED).stacked()
-    jmodel, tmodel = jax_cnn_hybrid(h_rows=11), cnn_hybrid(h_rows=11)
+    spec = ESR if dataset == "esr" else ORGANAMNIST
+    X, y = make_dataset(spec, 128, seed=SEED)
+    raw = hybrid_partition(spec, X, y, jfed, seed=SEED).stacked()
+    if dataset == "esr":
+        kw = dict(n_features=178, hospital_features=89, n_classes=5)
+        jmodel, tmodel = jax_lstm_hybrid(**kw), lstm_hybrid(**kw)
+    else:
+        jmodel, tmodel = jax_cnn_hybrid(h_rows=11), cnn_hybrid(h_rows=11)
     return jfed, tfed, raw, jmodel, tmodel
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_init(jfed):
-    jmodel = _setup()[3]
+def _jax_init(jfed, dataset="organamnist"):
+    jmodel = _setup(dataset)[3]
     return jax.jit(lambda key, d: JH.init_state(key, jmodel, jfed, d))
 
 
-def _jax_state(jfed, jdata):
+def _jax_state(jfed, jdata, dataset="organamnist"):
     """A fresh JAX initial state (its run donates it)."""
-    return _jax_init(jfed)(jax.random.PRNGKey(SEED), jdata)
+    return _jax_init(jfed, dataset)(jax.random.PRNGKey(SEED), jdata)
 
 
 def _initial_params(jstate):
@@ -89,16 +98,17 @@ def _jax_draws(jfed, n):
     return torch.from_numpy(np.stack(draws))
 
 
-def _run_both(rounds, algorithm="hsgd", **train_kw):
-    jfed, tfed, raw, jmodel, tmodel = _setup()
+def _run_both(rounds, algorithm="hsgd", dataset="organamnist", **train_kw):
+    jfed, tfed, raw, jmodel, tmodel = _setup(dataset)
     jrunner, jfed = JB.make_runner(algorithm, jmodel, jfed, JaxTrain(**train_kw))
     trunner, tfed = B.make_runner(algorithm, tmodel, tfed, TrainConfig(**train_kw))
-    if algorithm == "centralized":
-        # one merged group, as the port's launcher feeds this runner
+    if algorithm in ("centralized", "tdcd", "c-tdcd"):
+        # one merged group, as both launchers feed TDCD (and the port's,
+        # centralized SGD)
         raw = B.merge_groups_for_tdcd(raw)
     jdata = {k: jnp.asarray(v) for k, v in raw.items()}
     tdata = {k: torch.as_tensor(v) for k, v in raw.items()}
-    jstate = _jax_state(jfed, jdata)
+    jstate = _jax_state(jfed, jdata, dataset)
     params = tmodel.params_from_numpy(_initial_params(jstate), "cpu")
     tstate = H.init_state(torch.Generator(), tmodel, tfed, tdata, params=params)
     parts = _jax_draws(jfed, rounds * jfed.lam)
@@ -133,6 +143,41 @@ def test_centralized_run_matches_jax():
     [M, K] data; the port's launcher merges, as it does for TDCD."""
     jl, tl, jgm, tgm = _run_both(3, "centralized", learning_rate=0.05)
     assert tl.shape == jl.shape == (3,)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-6)
+    for t, j in zip(tree_leaves(tgm), jax.tree_util.tree_leaves(jgm)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("algorithm,train_kw", [
+    ("hsgd", {}),
+    ("c-hsgd", {"compression_k": 0.25, "quantization_bits": 128}),
+])
+def test_esr_lstm_runs_match_jax(algorithm, train_kw):
+    """paper-lstm on ESR ([K, 89, 1] towers, whose size-1 feature axis the
+    input projection broadcasts): 2 rounds from the reference's initial
+    model and participants, per-step losses within rtol 1e-4."""
+    jl, tl, _, _ = _run_both(2, algorithm, "esr", learning_rate=0.05, **train_kw)
+    assert tl.shape == jl.shape == (8,)
+    assert np.isfinite(tl).all()
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+
+
+@pytest.mark.parametrize("algorithm,train_kw", [
+    ("tdcd", {}),
+    ("c-tdcd", {"compression_k": 0.25, "quantization_bits": 128}),
+    ("hsgd", {"lr_halve_every": 2}),
+])
+def test_tdcd_and_lr_schedule_runs_match_jax(algorithm, train_kw):
+    """3 rounds of TDCD and C-TDCD (one merged group) and of HSGD with the
+    step size halved every 2 steps, against the reference from the same
+    initial model and participants: losses within rtol 1e-4 (compression,
+    as for c-hsgd) or rtol 1e-5, atol 1e-6, and the final global model
+    within atol 1e-5 without compression."""
+    jl, tl, jgm, tgm = _run_both(3, algorithm, learning_rate=0.05, **train_kw)
+    assert tl.shape == jl.shape and np.isfinite(tl).all()
+    if algorithm == "c-tdcd":
+        np.testing.assert_allclose(tl, jl, rtol=1e-4)
+        return
     np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-6)
     for t, j in zip(tree_leaves(tgm), jax.tree_util.tree_leaves(jgm)):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-5)
@@ -181,6 +226,23 @@ def test_sampled_participants_valid_and_distinct():
     assert ((idx >= 0) & (idx < fed.devices_per_group)).all()
     for row in idx:
         assert len(set(row.tolist())) == fed.sampled_devices
+
+
+def test_gather_past_the_group_data_fills_as_the_reference():
+    """Participants are drawn among all devices_per_group devices; where a
+    group's data holds fewer, the indices past it read jnp.take's fill
+    values (NaN features, the least int32 label, True for valid) in both
+    packages, and the rest is gathered exactly."""
+    _, _, raw, _, _ = _setup()
+    K = raw["y"].shape[1]
+    idx = np.stack([np.r_[0, K - 1, K, K + 7], np.r_[K + 1, 3, 1, K - 2]]).astype(np.int32)
+    want = JF.gather_batch({k: jnp.asarray(v[:2]) for k, v in raw.items()}, jnp.asarray(idx))
+    got = F.gather_batch({k: torch.as_tensor(v[:2]) for k, v in raw.items()},
+                         torch.from_numpy(idx))
+    for k in raw:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    assert np.isnan(got["x1"].numpy()[0, 2]).all()
+    assert int(got["y"][1, 0]) == np.iinfo(np.int32).min
 
 
 def test_run_rejects_wrong_participant_count():

@@ -21,10 +21,12 @@ from repro.common.pytree import tree_dot as jax_tree_dot
 from repro.data import partition as jax_partition
 from repro.data import synthetic as jax_synthetic
 from repro.models import split_model as jax_split
+from repro.models.cnn import classification_loss as jax_classification_loss
 from repro_torch.common.config import FederationConfig, TrainConfig, apply_overrides
 from repro_torch.common.pytree import tree_dot, tree_flatten, tree_leaves, tree_norm, tree_unflatten
 from repro_torch.data import partition, synthetic
 from repro_torch.models import split_model
+from repro_torch.models.cnn import classification_loss
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -42,6 +44,9 @@ def _one_torch_thread():
 def _models(kind):
     if kind == "cnn":
         return jax_split.cnn_hybrid(h_rows=11), split_model.cnn_hybrid(h_rows=11)
+    if kind == "esr":  # the launcher's ESR model: 178x1 series split 89/89, 5 classes
+        kw = dict(n_features=178, hospital_features=89, n_classes=5)
+        return jax_split.lstm_hybrid(**kw), split_model.lstm_hybrid(**kw)
     return (jax_split.lstm_hybrid(n_features=76, hospital_features=36),
             split_model.lstm_hybrid(n_features=76, hospital_features=36))
 
@@ -52,6 +57,10 @@ def _inputs(kind, batch=4, seed=0):
         x1 = rng.standard_normal((batch, 11 * 28)).astype(np.float32)
         x2 = rng.standard_normal((batch, 17 * 28)).astype(np.float32)
         y = rng.integers(0, 11, batch).astype(np.int32)
+    elif kind == "esr":  # [B, 89, 1] towers: the size-1 feature axis meets wx's 89 rows
+        x1 = rng.standard_normal((batch, 89, 1)).astype(np.float32)
+        x2 = rng.standard_normal((batch, 89, 1)).astype(np.float32)
+        y = rng.integers(0, 5, batch).astype(np.int32)
     else:
         x1 = rng.standard_normal((batch, 48, 36)).astype(np.float32)
         x2 = rng.standard_normal((batch, 48, 40)).astype(np.float32)
@@ -64,7 +73,7 @@ def _close(port, ref, what):
                                rtol=RTOL, atol=ATOL, err_msg=what)
 
 
-@pytest.mark.parametrize("kind", ["cnn", "lstm"])
+@pytest.mark.parametrize("kind", ["cnn", "lstm", "esr"])
 def test_forward_loss_and_grads_match_jax(kind):
     jm, tm = _models(kind)
     jparams = jax.jit(jm.init)(jax.random.PRNGKey(1))
@@ -86,7 +95,23 @@ def test_forward_loss_and_grads_match_jax(kind):
         _close(t, j, f"grad leaf {i}")
 
 
-@pytest.mark.parametrize("kind", ["cnn", "lstm"])
+def test_classification_loss_reads_nan_outside_the_classes_as_jax():
+    """Labels that count from the end, and the fill label gathered from past
+    a group's data, against the reference's take_along_axis: the same loss
+    (NaN where a label lies outside [-C, C)) and the same gradient."""
+    logits = np.random.default_rng(0).standard_normal((4, 5)).astype(np.float32)
+    for labels in ([1, 4, 0, 2], [1, -1, -5, 2], [1, np.iinfo(np.int32).min, 3, 0]):
+        lab = np.asarray(labels, np.int32)
+        want, want_g = jax.value_and_grad(jax_classification_loss)(jnp.asarray(logits),
+                                                                   jnp.asarray(lab))
+        x = torch.from_numpy(logits).requires_grad_()
+        got = classification_loss(x, torch.from_numpy(lab))
+        got.backward()
+        np.testing.assert_allclose(got.item(), float(want), rtol=1e-6, equal_nan=True)
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_g), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", ["cnn", "lstm", "esr"])
 def test_init_matches_spec_shapes(kind):
     jm, tm = _models(kind)
     jparams = jax.eval_shape(jm.init, jax.random.PRNGKey(0))

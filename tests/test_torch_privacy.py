@@ -33,6 +33,7 @@ from repro_torch.core import hsgd as H
 from repro_torch.core.compression import compress_rows_ref, warp_order_sqnorm
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.compress import compress_pytree, fused_compress, stack_rows
+from repro_torch.kernels.compress_cases import EDGE_WIDTHS, edge_case_rows, same_values
 from test_torch_hsgd import SEED, _initial_params, _jax_state, _setup
 
 _oracle = jax.jit(jax_compress_rows_ref, static_argnames=("levels",))
@@ -358,8 +359,8 @@ def test_dp_kernel_refuses_cpu_tensors():
 @pytest.mark.parametrize("levels", [0, 128])
 def test_dp_kernel_matches_plain(levels):
     """The DP kernel against the plain version on the card: bit-identical,
-    ragged rows and NaN rows included, and the σ = 0 pass equal to the
-    non-DP kernel."""
+    ragged rows, NaN rows and the edge-case matrix included, and the σ = 0
+    pass equal to the non-DP kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -378,3 +379,11 @@ def test_dp_kernel_matches_plain(levels):
     assert torch.equal(fused_compress(x, k, levels, row_len, 1e30, 0.0, noise),
                        fused_compress(x, k, levels, row_len))
     assert launch_counts["fused_compress_dp"] == 5
+    c, s = torch.tensor(1.0, device=dev), torch.tensor(0.5, device=dev)
+    for n in EDGE_WIDTHS:  # every register bucket and the shared-memory body
+        xe, ke, le = (t.to(dev) for t in edge_case_rows(n))
+        ne = torch.from_numpy(_normal(n, tuple(xe.shape))).to(dev)
+        got = fused_compress(xe, ke, levels, le, c, s, ne)
+        want = compress_rows_ref(xe, ke, levels, le, c, s, ne)
+        torch.cuda.synchronize()
+        assert same_values(got, want), n

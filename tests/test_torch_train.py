@@ -1,5 +1,6 @@
 """The port's training entry point, device rule and package boundary."""
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -122,6 +123,25 @@ def test_lstm_model_runs(capsys):
                  "--algorithm", "c-hsgd", "--groups", "2", "--devices", "8",
                  "--samples", "64", "--rounds", "1"], capsys)
     assert m["steps"] == 4
+
+
+def test_esr_lstm_runs_with_fewer_samples_than_devices(capsys):
+    """paper-lstm on ESR ([B, 89, 1] towers) with 256 samples over the
+    default 10 groups of 64 devices: a group's data holds 25 devices, the
+    participants are drawn among all 64, and those past the data read the
+    fill values, as in the reference. Both runs exit normally and print the
+    same metrics (NaN losses included); only the wall time differs."""
+    flags = ["--model", "paper-lstm", "--dataset", "esr", "--algorithm", "hsgd",
+             "--samples", "256", "--rounds", "1"]
+    REF.main(flags)
+    ref = json.loads(capsys.readouterr().out)
+    T.run_ehealth(T.parse_args(["--device", "cpu"] + flags))
+    port = json.loads(capsys.readouterr().out)
+    assert set(port) == set(ref) == REFERENCE_KEYS
+    assert port["steps"] == ref["steps"] == 4
+    for key in REFERENCE_KEYS - {"wall_s"}:
+        assert port[key] == ref[key] or (math.isnan(port[key]) and math.isnan(ref[key])), key
+    assert math.isnan(ref["train_loss_final"])
 
 
 def test_default_device_is_cuda_and_raises_without_it():
