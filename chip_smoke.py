@@ -16,7 +16,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      same way); then the edge-case matrix: widths 1 to 4000 (every
      register bucket, non-multiples of 32, the shared-memory body past
      1024) with k <= 0, k >= len, len = 0, tied magnitudes, ±inf, NaN,
-     all-zero rows, subnormals and values near the fp32 maximum, at levels
+     all-zero rows, subnormals, values near the fp32 maximum and rows with
+     no finite value (all NaN, all ±inf, NaN mixed with ±inf), at levels
      0, 16 and 128 (torch.equal; NaN only where both versions give NaN);
   2b. the same for the DP compress kernel (clip C, noise multiplier σ):
      the main message with noise from a CUDA generator (C=1, σ=1), the
@@ -40,10 +41,43 @@ Phases, in order; any failure raises and the script exits nonzero:
      noise rows and masks) and for a short adaptive run (T = 8, no probe:
      the same P, Q and rungs); and on the card the masked ring aggregate
      equals the unmasked one bit for bit;
+  4e. the card against the CPU on the population path: 2 semi_async rounds
+     from the same initial model, the same cohorts and round records,
+     per-step losses within rtol 1e-3;
   5. a {"kernels": [...]} summary line, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 
-Serving (after phase 2b, 3c and 4b respectively):
+The population and fault-tolerant runtimes (after phase 3c):
+  3f. ``repro_torch.launch.train --population sync`` and ``semi_async`` at the
+     full width (paper-cnn, M=10, K=64, 2048 samples, 64 simulated
+     devices a group, cohort 8, P=4, Q=2, C-HSGD k=0.25, b=128), 10 rounds,
+     the counters zeroed just before and read just after: rounds × Λ compress
+     launches and no other kernel, one executor per cohort bucket seen,
+     finite losses that fall; steps/s and simulated seconds; every message
+     the runs handed the compress kernel (the cohort bucket's row count, not
+     the fixed path's) held against the plain version (torch.equal), and
+     the first one timed as in phase 2;
+  3g. the defense's cost on fault-free rounds: on one cohort, 4 runs of 10
+     rounds of each executor in alternating order: the plain cohort
+     executor, the screened one (fault terms all zero) with the robust
+     center always computed as mean, median and trimmed, the screened one
+     with the center left out (the screen's own cost) and with the center
+     behind a host branch (the reference's lax.cond); steps/s, and every
+     screened run's parameters and losses equal the plain run's
+     (torch.equal);
+     then the resilient runtime with --fault-dropout 0.1 --fault-nan 0.05
+     --fault-outlier 0.05 --fault-msg-corrupt 0.05 --ckpt-every 2, robust
+     (ends recovered, updates flagged) and --no-defense, both with executed
+     rounds × Λ compress launches (rolled-back rounds counted) and the
+     kernel held against plain on every message they handed it, the naive
+     run's non-finite rows included (equal, NaN where both are NaN); then
+     --preempt-round 3 raises at round 3 and --resume finishes with losses
+     and parameters equal (torch.equal) to the uninterrupted robust run;
+  3h. --population adaptive (one compress launch an executed exchange) and
+     the quickstart twin (``repro_torch.examples.quickstart``, whose
+     auc_roc > 0.6 assertion must hold) on the card.
+
+Serving (after phase 2b, 3h and 4b respectively):
   2c. the flash-attention kernel against its plain PyTorch version on the
      card: [8, 4096, 256] (gemma3-1b's prefill) with windows 0 and 1024,
      [64, 4096, 64] (stablelm-1.6b's head_dim), a ragged [3, 2500, 128],
@@ -89,12 +123,14 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import math
 import os
 import re
 import resource
+import shutil
 import subprocess
 import sys
 import time
@@ -102,6 +138,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.common.backend import resolve_device  # noqa: E402
@@ -117,8 +154,12 @@ from repro_torch.core.controller import (  # noqa: E402
     gaussian_rho,
     ladder_from,
 )
-from repro_torch.core.hsgd import exchange, init_state  # noqa: E402
+from repro_torch.core.hsgd import HSGDRunner, exchange, init_state, resize_cohort  # noqa: E402
+from repro_torch.core.population import (CoordinatorPreempted, DeviceRegistry,  # noqa: E402
+                                         PopulationConfig)
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels import build, launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels import compress as compress_kernels  # noqa: E402
 from repro_torch.kernels.compress import fused_compress, stack_rows  # noqa: E402
 from repro_torch.kernels.compress_cases import EDGE_WIDTHS, edge_case_rows, same_values  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
@@ -127,7 +168,8 @@ from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref  # noqa: E4
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.timing import device_ms  # noqa: E402
-from repro_torch.launch.train import parse_args, run_ehealth, setup_ehealth  # noqa: E402
+from repro_torch.launch.train import (parse_args, population_rounds, run_ehealth,  # noqa: E402
+                                      run_population_cli, setup_ehealth)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.ssm import CHUNK as SSM_CHUNK  # noqa: E402
@@ -192,6 +234,17 @@ SSM_SERVE_ARGV = ["--arch", "falcon-mamba-7b", "--full", "--batch", "2", "--prom
 SSM_PARITY_LEN, SSM_PARITY_GEN = 300, 8
 PARITY_ROUNDS = 2
 ADAPTIVE_PARITY_STEPS = 8
+# the population path at full width: the reference CLI's defaults
+# (its paper widths) with C-HSGD's k and b
+POP_ARGV = ["--model", "paper-cnn", "--dataset", "organamnist", "--algorithm", "hsgd",
+            "--compression-k", "0.25", "--quantization", "128", "--groups", "10",
+            "--devices", "64", "--alpha", "0.25", "--samples", "2048", "--p", "4", "--q", "2",
+            "--pop-devices", "64", "--cohort", "8"]
+FAULT_ARGV = ["--fault-dropout", "0.1", "--fault-nan", "0.05", "--fault-outlier", "0.05",
+              "--fault-msg-corrupt", "0.05", "--ckpt-every", "2"]
+POP_ROUNDS = 10
+# checkpoints of phase 3g, inside the checkout's ignored build directory
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -663,6 +716,301 @@ def same_start_losses(*devices):
     return out
 
 
+def run_pop(argv):
+    """``run_population_cli`` on ``argv``, its stdout echoed: (report, result)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out, res = run_population_cli(parse_args(argv))
+    print(f"[population] {json.dumps(out)}")
+    return out, res
+
+
+def state_tensors(state):
+    """Every tensor of an HSGDState."""
+    return [t for part in (state.theta0, state.theta1, state.theta2, state.stale, state.batch)
+            for t in tree_leaves(part)]
+
+
+def same_state(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(state_tensors(a), state_tensors(b)))
+
+
+@contextlib.contextmanager
+def kept_messages():
+    """Yield a list that collects every message a run hands the compress
+    kernel, as (x, k, levels, row_len, dp...) by reference: each is a fresh
+    tensor the path never writes again. The kernel's wrapper still
+    launches, and counts, every call."""
+    launch, kept = compress_kernels.fused_compress, []
+
+    def keep(x, k, levels=0, row_len=None, *dp):
+        kept.append((x, k, levels, row_len) + dp)
+        return launch(x, k, levels, row_len, *dp)
+
+    compress_kernels.fused_compress = keep
+    try:
+        yield kept
+    finally:
+        compress_kernels.fused_compress = launch
+
+
+def check_path_messages(tag, kept, exact: bool):
+    """The compress kernel against its plain version on every message a run
+    handed it. ``exact``: torch.equal on each; else NaN is allowed where
+    both versions give NaN (same_values), and the rows whose whole valid
+    prefix is non-finite are counted. Returns the largest |difference|."""
+    shapes, nonfinite, whole, err = set(), 0, 0, 0.0
+    for x, k, lv, ln, *dp in kept:
+        got = fused_compress(x, k, lv, ln, *dp)
+        want = compress_rows_ref(x, k, lv, ln, *dp)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want) if exact else same_values(got, want)
+        check(same, f"{tag}: kernel differs from plain on a path message of shape "
+                    f"{tuple(x.shape)}")
+        both = torch.isfinite(got) & torch.isfinite(want)
+        if bool(both.any()):
+            err = max(err, float((got - want)[both].abs().max()))
+        valid = torch.arange(x.shape[1], device=x.device) < ln[:, None]
+        bad = valid & ~torch.isfinite(x)
+        nonfinite += int(bad.any(dim=1).sum())
+        whole += int(((bad | ~valid).all(dim=1) & (ln > 0)).sum())
+        shapes.add(tuple(x.shape))
+    print(f"[kernel] {tag}: {len(kept)} messages of shapes {sorted(shapes)}: kernel "
+          f"{'torch.equal to' if exact else 'equal (NaN where both are NaN) to'} plain; rows "
+          f"with a non-finite value {nonfinite}, of them wholly non-finite {whole}")
+    return err
+
+
+def check_population_paths(device, bw, flops, floor_ms):
+    """Phase 3f: sync and semi_async at full width through the CLI, the
+    kernel held bit for bit against plain on every cohort message they gave
+    it; returns ({mode: (steps/s, simulated seconds, compress launches)},
+    the first cohort message's comparison, the largest difference)."""
+    lam = parse_args(POP_ARGV).p // parse_args(POP_ARGV).q
+    stats, timed, err = {}, None, 0.0
+    for mode in ("sync", "semi_async"):
+        argv = POP_ARGV + ["--population", mode, "--device", "cuda", "--rounds", str(POP_ROUNDS)]
+        with kept_messages() as kept:
+            reset_launch_counts()
+            out, res = run_pop(argv)
+            torch.cuda.synchronize()
+            counts = dict(launch_counts)
+        buckets = sorted({h["bucket"] for h in res["history"]})
+        losses = res["losses"]
+        print(f"[population-{mode}] launches={counts} buckets={buckets} "
+              f"executors={out['executors_compiled']} steps/s={out['steps'] / out['wall_s']} "
+              f"wall_s={out['wall_s']} sim_seconds={out['sim_seconds']} "
+              f"cohort sizes={[h['cohort_sizes'] for h in res['history'][:2]]}...")
+        check(counts == {"fused_compress": POP_ROUNDS * lam},
+              f"{mode}: launches {counts}, expected {POP_ROUNDS * lam} compress launches")
+        check(len(kept) == POP_ROUNDS * lam, f"{mode}: {len(kept)} messages kept")
+        check(out["executors_compiled"] == len(buckets),
+              f"{mode}: {out['executors_compiled']} executors for buckets {buckets}")
+        check(np.isfinite(losses).all(), f"{mode}: non-finite loss")
+        first, last = float(losses[:4].mean()), float(losses[-4:].mean())
+        check(last < first, f"{mode}: loss did not fall: first-4 {first}, last-4 {last}")
+        stats[mode] = (out["steps"] / out["wall_s"], out["sim_seconds"], counts["fused_compress"])
+        err = max(err, check_path_messages(f"{mode} cohort messages", kept, exact=True))
+        if timed is None:
+            x, k, lv, ln = kept[0][:4]  # the cohort path has no DP operands
+            timed = compare_compress(f"cohort message A={buckets[0]}", x, k, ln, lv, bw, flops,
+                                     floor_ms)
+        del kept
+    return stats, timed, err
+
+
+def _screen_only(theta2, pmask, trust, method="mean", trim_frac=0.1, agg_masks=None):
+    """The screened executor's eq. (1) with the robust center left out: the
+    masked mean, which is what every slot trusted gives."""
+    return F.local_aggregate(theta2, pmask)
+
+
+def _host_branch(robust):
+    """``robust`` behind a host branch, as the reference's lax.cond: the
+    center only when a group has a flagged slot and a survivor, at one
+    device-to-host copy an aggregation."""
+    def agg(theta2, pmask, trust, method="mean", trim_frac=0.1, agg_masks=None):
+        cnt = torch.sum(pmask * trust, dim=1)
+        flagged = torch.sum(pmask * (1.0 - trust), dim=1)
+        if bool(((flagged > 0) & (cnt > 0)).any()):
+            return robust(theta2, pmask, trust, method, trim_frac, agg_masks)
+        return F.local_aggregate(theta2, pmask)
+    return agg
+
+
+# the fault-free defense timing: executors, and turns of POP_ROUNDS rounds
+# each, run in alternating order (forward, backward, ...)
+DEFENSE_VARIANTS = ("plain", "screen-only", "host-branch", "mean", "median", "trimmed")
+DEFENSE_TURNS = 4
+
+
+def defense_overhead(device):
+    """Phase 3g, first half: what the defense costs on fault-free rounds.
+    On one full-width cohort, POP_ROUNDS rounds a run from one initial
+    model, DEFENSE_TURNS runs of each executor in alternating order: the
+    plain cohort executor; the screened one (fault terms all zero) with the
+    robust center always computed as ``--robust-agg mean``, ``median`` and
+    ``trimmed``; the screened one with the center left out (``screen-only``:
+    the screen's own cost); and with the center behind a host branch
+    (``host-branch``: the reference's ``lax.cond``). Every screened run's
+    parameters and losses must equal the plain run's (torch.equal).
+    Returns {variant: mean steps/s}."""
+    args = parse_args(POP_ARGV + ["--population", "semi_async", "--device", "cuda"])
+    model, fed, train, data, w, _ = setup_ehealth(args, device)
+    pop = PopulationConfig(seed=args.seed, devices_per_group=args.pop_devices,
+                           target_cohort=args.cohort)
+    cohort = DeviceRegistry(data, pop).sample_cohort(0, 0.0)
+    M, A = cohort.pmask.shape
+    init = tree_map(lambda t: t.to(device), model.init(torch.Generator().manual_seed(args.seed)))
+    w = w.cpu().numpy()
+    clean = (np.zeros((M, A), np.float32), np.zeros(M, np.float32))
+    robust = F.robust_local_aggregate
+
+    def screened(method, agg=robust):
+        runner = HSGDRunner(model, dataclasses.replace(fed, robust_agg=method), train)
+        return runner.fault_round_fn(args.p, args.q, A, robust=True), clean, agg
+
+    fns = {"plain": (HSGDRunner(model, fed, train).cohort_round_fn(args.p, args.q, A,
+                                                                   collect_stats=False),
+                     (), robust),
+           "screen-only": screened("mean", _screen_only),
+           "host-branch": screened("mean", _host_branch(robust)),
+           **{m: screened(m) for m in ("mean", "median", "trimmed")}}
+
+    def rounds(name, n):
+        fn, faults, agg = fns[name]
+        state = resize_cohort(init_state(torch.Generator(), model, fed, data, params=init),
+                              model, data, A)
+        losses = []
+        F.robust_local_aggregate = agg
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                state, loss, *_ = fn(state, data, w, args.lr, cohort.idx, cohort.pmask, *faults)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            F.robust_local_aggregate = robust
+        return state, torch.cat(losses), n * args.p / seconds
+
+    for name in DEFENSE_VARIANTS:  # warm-up
+        rounds(name, 1)
+    sps = {name: [] for name in DEFENSE_VARIANTS}
+    ref = None
+    for turn in range(DEFENSE_TURNS):
+        for name in DEFENSE_VARIANTS[::1 if turn % 2 == 0 else -1]:
+            state, losses, rate = rounds(name, POP_ROUNDS)
+            sps[name].append(rate)
+            if ref is None:
+                ref = (state, losses)
+            check(same_state(ref[0], state) and torch.equal(ref[1], losses),
+                  f"fault-free {name} rounds differ from the plain cohort rounds")
+    mean = {name: float(np.mean(r)) for name, r in sps.items()}
+    for name in DEFENSE_VARIANTS:
+        print(f"[defense] {name}: steps/s={sps[name]} mean={mean[name]} "
+              f"min={min(sps[name])} max={max(sps[name])} of plain={mean[name] / mean['plain']} "
+              f"overhead={1.0 - mean[name] / mean['plain']}")
+    print(f"[defense] fault-free rounds at A={A}, {POP_ROUNDS} rounds a run, "
+          f"{DEFENSE_TURNS} runs each in alternating order; every screened run's parameters "
+          f"and losses equal the plain run's (torch.equal); the robust center's share "
+          f"(always computed, of plain) mean={(mean['screen-only'] - mean['mean']) / mean['plain']} "
+          f"median={(mean['screen-only'] - mean['median']) / mean['plain']} "
+          f"trimmed={(mean['screen-only'] - mean['trimmed']) / mean['plain']}")
+    return mean
+
+
+def check_fault_paths(device):
+    """Phase 3g, second half: the resilient runtime through the CLI, robust
+    and naive, the kernel held against plain on every message they gave it
+    (the naive run's include a diverged model's non-finite rows); then a
+    preemption and its resume. Returns the robust run's report, its
+    compress launches and the largest difference."""
+    lam = parse_args(POP_ARGV).p // parse_args(POP_ARGV).q
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    base = POP_ARGV + ["--population", "semi_async", "--device", "cuda",
+                       "--rounds", str(POP_ROUNDS)] + FAULT_ARGV
+    runs, err = {}, 0.0
+    for name, extra in (("robust", []), ("naive", ["--no-defense"])):
+        with kept_messages() as kept:
+            reset_launch_counts()
+            out, res = run_pop(base + extra + ["--checkpoint", str(CKPT_DIR / name)])
+            torch.cuda.synchronize()
+            counts = dict(launch_counts)
+        executed = len(res["fault_log"])
+        rolled = sum(1 for r in res["fault_log"] if r.get("rolled_back"))
+        print(f"[faults-{name}] launches={counts} executed rounds={executed} "
+              f"(rolled back {rolled}) steps/s={out['steps'] / out['wall_s']} "
+              f"recovered={out['recovered']} flagged={out['updates_flagged']} "
+              f"rollbacks={out['rollbacks']} dropped={out['devices_dropped']} "
+              f"grad_faults={out['grad_faults']} msg_faults={out['msg_faults']}")
+        check(counts == {"fused_compress": executed * lam},
+              f"{name}: launches {counts}, expected executed rounds x Λ = {executed * lam}")
+        check(len(kept) == executed * lam, f"{name}: {len(kept)} messages kept")
+        err = max(err, check_path_messages(f"faults-{name} messages", kept, exact=False))
+        del kept
+        runs[name] = (out, res, counts)
+    out, res, counts = runs["robust"]
+    check(out["recovered"] and out["updates_flagged"] > 0,
+          f"robust run: recovered={out['recovered']} flagged={out['updates_flagged']}")
+    preempt = base + ["--checkpoint", str(CKPT_DIR / "preempt"), "--preempt-round", "3"]
+    try:
+        run_pop(preempt)
+        check(False, "--preempt-round 3 did not raise")
+    except CoordinatorPreempted as e:
+        check(e.round_idx == 3, f"preempted at round {e.round_idx}, expected 3")
+        print(f"[faults-preempt] raised CoordinatorPreempted at round {e.round_idx}")
+    out_r, res_r = run_pop(preempt + ["--resume"])
+    check(np.array_equal(res_r["losses"], res["losses"], equal_nan=True),
+          "resumed losses differ from the uninterrupted run's")
+    check(same_state(res_r["state"], res["state"]),
+          "resumed parameters differ from the uninterrupted run's (torch.equal)")
+    print(f"[faults-resume] resumed run equal to the uninterrupted one: {len(res_r['losses'])} "
+          f"losses and every state tensor (torch.equal)")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out, counts, err
+
+
+def check_adaptive_population_and_quickstart(device):
+    """Phase 3h: --population adaptive, and the quickstart twin on the card."""
+    reset_launch_counts()
+    out, res = run_pop(POP_ARGV + ["--population", "adaptive", "--device", "cuda",
+                                   "--rounds", str(POP_ROUNDS)])
+    torch.cuda.synchronize()
+    hist = res["history"]
+    want = sum(h["P"] // h["Q"] for h in hist if h["compression_k"] or h["quant_levels"])
+    print(f"[population-adaptive] launches={dict(launch_counts)} rounds={len(hist)} "
+          f"plans={[(h['P'], h['Q'], h['rung']) for h in hist]} "
+          f"executors={out['executors_compiled']} steps/s={out['steps'] / out['wall_s']} "
+          f"sim_seconds={out['sim_seconds']}")
+    check(dict(launch_counts) == {"fused_compress": want},
+          f"adaptive population launches {dict(launch_counts)}, expected {want}")
+    check(np.isfinite(res["losses"]).all(), "adaptive population: non-finite loss")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        metrics = quickstart.main(["--device", "cuda"])  # raises unless auc_roc > 0.6
+    print(buf.getvalue(), end="")
+    print(f"[quickstart] on the card: auc_roc={metrics['auc_roc']}")
+    return out
+
+
+def same_start_population(*devices):
+    """PARITY_ROUNDS semi_async rounds at full width on each device from one
+    CPU-drawn initial model: (losses, round records) per device."""
+    args = parse_args(POP_ARGV + ["--population", "semi_async"])
+    init = None
+    out = []
+    for dev in devices:
+        model, fed, train, data, _, _ = setup_ehealth(args, dev)
+        if init is None:
+            init = model.init(torch.Generator().manual_seed(args.seed))
+        res = population_rounds(args, model, fed, train, data, PARITY_ROUNDS,
+                                params=tree_map(lambda t: t.to(dev), init))
+        out.append((torch.from_numpy(res["losses"]), res["history"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -777,6 +1125,21 @@ def main() -> int:
     check(all(math.isfinite(float(v)) for v in losses) and last < first,
           f"adaptive loss did not fall: first-4 mean {first}, last-4 mean {last}")
 
+    # -- phase 3f: the population runtime at full width -----------------------
+    pop_stats, cohort_cmp, err = check_population_paths(device, bw, flops, floor_ms)
+    max_err = max(max_err, err, cohort_cmp["max_abs_err"])
+
+    # -- phase 3g: the defense's cost, faults, preemption and resume -----------
+    defense_sps = defense_overhead(device)
+    fault_out, fault_counts, err = check_fault_paths(device)
+    max_err = max(max_err, err)
+
+    # -- phase 3h: the adaptive population run and the quickstart twin ---------
+    check_adaptive_population_and_quickstart(device)
+    print(f"[population-summary] sync/semi_async (steps/s, sim s, compress launches)="
+          f"{pop_stats} defense steps/s={defense_sps} "
+          f"fault run compress launches={fault_counts}")
+
     # -- phase 3d: the serving path at full width -----------------------------
     reset_launch_counts()
     report, tokens = run_serve_cli(SERVE_ARGV)
@@ -866,6 +1229,15 @@ def main() -> int:
     check(launch_counts["ssm_scan"] > 0, "the card's ssm parity run skipped the kernel")
     check(rel <= 1e-4, f"ssm serving path: first-step logits differ by {rel} relative (> 1e-4)")
     check(tok_card == tok_cpu, "ssm serving path: card and CPU greedy tokens differ")
+
+    # -- phase 4e: the card against the CPU on the population path ----------
+    (l_cpu, h_cpu), (l_card, h_card) = same_start_population(torch.device("cpu"), device)
+    rel = float(((l_card - l_cpu).abs() / l_cpu.abs()).max())
+    print(f"[parity-population] cohorts={[h['cohort_sizes'] for h in h_card]} "
+          f"cpu={l_cpu.tolist()} cuda={l_card.tolist()} max_rel_diff={rel}")
+    check(h_card == h_cpu, "population path: card and CPU rounds differ (cohorts, clock)")
+    check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
+          f"population path: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
 
     # -- phase 5: summary ----------------------------------------------------
     kernels = [{

@@ -3,8 +3,8 @@ configuration (the paper's hyper-parameters).
 
 Same fields, defaults and validation errors as ``repro/common/config.py``.
 The registry holds the architectures the port runs (``repro_torch/configs``:
-the dense family and Mamba-1); the reference's other architectures raise
-"not ported yet".
+the paper's CNN and LSTM, the dense family and Mamba-1); the reference's
+other architectures raise "not ported yet".
 """
 from __future__ import annotations
 
@@ -116,8 +116,40 @@ class ModelConfig:
             total += self.encoder_layers * per_layer + L * per_layer
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        eff = self.moe_d_ff or self.d_ff
+        mults = 3 if self.mlp in ("swiglu", "geglu") else 2
+        dense_moe = self.num_experts * mults * d * eff
+        active_moe = (self.experts_per_token + self.num_shared_experts) * mults * d * eff
+        return self.param_count() - L * dense_moe + L * active_moe
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +160,7 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 # the reference's architectures that the port does not run yet
 UNPORTED_ARCHS = ("deepseek-v3-671b", "gemma3-4b", "grok-1-314b", "nemotron-4-15b",
-                  "qwen2-vl-72b", "whisper-medium", "zamba2-2.7b", "paper-cnn", "paper-lstm")
+                  "qwen2-vl-72b", "whisper-medium", "zamba2-2.7b")
 
 
 def register_config(name: str, full: Callable[[], ModelConfig], smoke: Callable[[], ModelConfig]):
@@ -170,11 +202,14 @@ class FederationConfig:
     # vertical feature split fraction held by the hospital
     hospital_feature_frac: float = 0.5
     non_iid_labels_per_group: int = 2
-    # robust aggregation of the fault-tolerant layer (validated here; the
-    # fault path itself comes with a later slice)
+    # --- robust aggregation (fault-tolerant federation layer) ---
+    # how a screened round combines the surviving device towers in eq. (1):
+    # "mean" keeps the masked mean over trusted slots; "median"/"trimmed"
+    # use the coordinate-wise robust statistic. Groups whose screening
+    # passes always take the masked-mean path bit-exactly.
     robust_agg: str = "mean"
-    trim_frac: float = 0.1
-    screen_zmax: float = 8.0
+    trim_frac: float = 0.1      # per-side trim fraction for "trimmed"
+    screen_zmax: float = 8.0    # norm-outlier cut: ||g|| > zmax * median norm
 
     def __post_init__(self):
         if self.local_interval < 1 or self.global_interval < 1:
@@ -233,3 +268,14 @@ def apply_overrides(cfg, overrides: Dict[str, Any]):
         else:
             kw[k] = v
     return dataclasses.replace(cfg, **kw)
+
+
+def parse_kv_list(items) -> Dict[str, str]:
+    """``["key=value", ...]`` -> {key: value} (values stay strings)."""
+    out = {}
+    for it in items or []:
+        if "=" not in it:
+            raise ValueError(f"override must be key=value, got {it!r}")
+        k, v = it.split("=", 1)
+        out[k] = v
+    return out

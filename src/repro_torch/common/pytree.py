@@ -62,3 +62,26 @@ def tree_dot(a, b):
 
 def tree_norm(tree):
     return torch.sqrt(tree_dot(tree, tree))
+
+
+def flatten_dict(d: dict, prefix: str = "", sep: str = "/") -> dict:
+    """Nested dict -> {"a/b/c": leaf}, the reference's checkpoint key names."""
+    out = {}
+    for k, v in d.items():
+        key = f"{prefix}{sep}{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten_dict(v, key, sep))
+        else:
+            out[key] = v
+    return out
+
+
+def unflatten_dict(flat: dict, sep: str = "/") -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        parts = k.split(sep)
+        cur = out
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+    return out

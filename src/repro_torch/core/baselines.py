@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.checkpoint.ckpt import register_state_class
 from repro_torch.common.config import FederationConfig, TrainConfig
 from repro_torch.common.pytree import tree_map
 from repro_torch.core import federation as F
@@ -28,10 +29,13 @@ from repro_torch.models.split_model import HybridModel
 from repro_torch.optim import halving_schedule
 
 
-class JFLState(NamedTuple):  # reprolint: disable=RP8 — registered with the checkpoint slice
+class JFLState(NamedTuple):
     params: Dict[str, Any]  # each leaf [M, A, ...] — unique model per pair
     generator: torch.Generator
     step: int
+
+
+register_state_class(JFLState)
 
 
 @dataclass(frozen=True)

@@ -2,10 +2,10 @@
 
 Eq. (1) (local aggregation over the sampled device subset A_m), eq. (2)
 (global weighted aggregation over groups) and the A_m / mini-batch
-agreement of Algorithm 1 line 13, and the secure-aggregation ring of
-``repro/core/federation.py``: pairwise int32 masks drawn with numpy, bit for
-bit the reference's, and eq. (1) over masked fixed-point uplinks. Robust
-aggregation comes with the fault slice.
+agreement of Algorithm 1 line 13, the secure-aggregation ring of
+``repro/core/federation.py`` (pairwise int32 masks drawn with numpy, bit for
+bit the reference's, and eq. (1) over masked fixed-point uplinks), and the
+fault-tolerant layer's screening statistics and robust eq. (1).
 """
 from __future__ import annotations
 
@@ -146,6 +146,114 @@ def secure_local_aggregate(masked_uplink, like, mask: Optional[torch.Tensor] = N
         keep = (cnt > 0).reshape((-1,) + tail)
         out.append(torch.where(keep, mean, torch.zeros((), device=device)).to(ref.dtype))
     return tree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# Screening statistics and robust aggregation (fault-tolerant layer)
+# ---------------------------------------------------------------------------
+
+
+def worker_sqnorm(tree, lead: int):
+    """Σ_leaves ‖·‖² per worker: [M, ...] -> [M] (lead=1) or
+    [M, A, ...] -> [M, A] (lead=2). NaN/Inf anywhere in a worker's slice
+    poisons its entry, so ``isfinite(worker_sqnorm(g))`` is the one-reduction
+    finite-value screen."""
+    per = [torch.sum((x * x).float(), dim=tuple(range(lead, x.dim())))
+           for x in tree_leaves(tree)]
+    return sum(per)
+
+
+def masked_median_values(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Median of the ``w > 0`` entries along dim 1: [M, A] -> [M].
+
+    Excluded slots sort to the end behind a dtype-max sentinel (NaN sorts
+    after it, as in ``jnp.sort``); a row with no selected entry returns the
+    sentinel (callers guard on their own count).
+    """
+    big = torch.finfo(v.dtype).max
+    s = torch.sort(torch.where(w > 0, v, big), dim=1).values
+    cnt = torch.sum((w > 0).to(torch.int32), dim=1)
+    lo = torch.clamp_min((cnt - 1) // 2, 0)
+    hi = torch.clamp_min(cnt // 2, 0)
+    take = lambda i: torch.gather(s, 1, i[:, None].long())[:, 0]
+    med = 0.5 * (take(lo) + take(hi))
+    return torch.where(cnt > 0, med, big)
+
+
+def _robust_center(x: torch.Tensor, w: torch.Tensor, method: str, trim_frac: float):
+    """Robust masked center along the device axis: [M, A, ...] -> [M, ...].
+
+    ``w`` [M, A] selects the contributing slots. "mean" is the masked mean;
+    "median"/"trimmed" sort each coordinate with excluded slots pushed to the
+    end behind a dtype-max sentinel and read the order statistics. Rows with
+    zero contributing slots return sentinel-valued garbage: callers select
+    those rows away (see ``robust_local_aggregate``).
+    """
+    cnt = torch.sum(w, dim=1)  # [M]
+    safe = torch.clamp_min(cnt, 1.0)
+    tail = (1,) * (x.dim() - 2)
+    wb = w.reshape(w.shape + tail).to(x.dtype)
+    if method == "mean":
+        return (torch.sum(torch.where(wb > 0, x, 0.0), dim=1)
+                / safe.reshape((-1,) + tail).to(x.dtype))
+    big = torch.finfo(x.dtype).max
+    s = torch.sort(torch.where(wb > 0, x, big), dim=1).values
+    if method == "median":
+        cnt_i = cnt.to(torch.int32)
+        index = lambda i: i.long().reshape((-1, 1) + tail).expand((x.shape[0], 1) + x.shape[2:])
+        take = lambda i: torch.gather(s, 1, index(i))[:, 0]
+        lo = torch.clamp_min((cnt_i - 1) // 2, 0)
+        hi = torch.clamp_min(cnt_i // 2, 0)
+        return 0.5 * (take(lo) + take(hi))
+    if method != "trimmed":
+        raise ValueError(f"unknown robust method {method!r}")
+    t = torch.minimum(torch.floor(trim_frac * cnt), torch.floor((cnt - 1.0) / 2.0))
+    t = torch.clamp_min(t, 0.0)  # cnt = 0 rows: keep the window empty-but-sane
+    pos = torch.arange(x.shape[1], dtype=torch.float32, device=x.device).reshape((1, -1) + tail)
+    keep = ((pos >= t.reshape((-1, 1) + tail))
+            & (pos < (cnt - t).reshape((-1, 1) + tail))).to(x.dtype)
+    denom = torch.clamp_min(cnt - 2.0 * t, 1.0).reshape((-1,) + tail).to(x.dtype)
+    return torch.sum(s * keep, dim=1) / denom
+
+
+def robust_local_aggregate(theta2_active, pmask: torch.Tensor, trust: torch.Tensor,
+                           method: str = "median", trim_frac: float = 0.1, agg_masks=None):
+    """Eq. (1) under screening: [M, A, ...] -> [M, ...].
+
+    ``pmask`` marks the round's real cohort slots, ``trust`` (same shape,
+    1.0 = screening accepted every update this slot applied) the surviving
+    ones. Per group:
+
+      * screening passed (no real slot flagged) -> the exact
+        ``local_aggregate(x, pmask)`` result, selected through
+        ``torch.where``: the fault-free path is the masked mean bit for bit;
+      * flagged, with survivors -> the robust center over the surviving
+        slots (masked mean / coordinate-wise median / trimmed mean);
+      * flagged, no survivors -> the masked-mean fallback (the group is
+        poisoned either way; its weight is zeroed upstream).
+
+    ``agg_masks`` routes the clean-path mean through the secure-aggregation
+    ring. The robust center is computed every call and selected by
+    ``torch.where``, where the reference's ``lax.cond`` skips it on clean
+    rounds: a branch on ``use_robust`` would copy it to the host (a device
+    sync) every exchange.
+    """
+    w = pmask * trust
+    flagged = torch.sum(pmask * (1.0 - trust), dim=1)  # [M] flagged real slots
+    cnt = torch.sum(w, dim=1)
+    use_robust = (flagged > 0) & (cnt > 0)
+    if agg_masks is not None:
+        plain = secure_local_aggregate(
+            secure_mask_uplink(theta2_active, agg_masks), theta2_active, pmask)
+    else:
+        plain = local_aggregate(theta2_active, pmask)
+
+    def sel(x_full, x_plain):
+        rob = _robust_center(x_full, w, method, trim_frac)
+        keep = use_robust.reshape((-1,) + (1,) * (x_plain.dim() - 1))
+        return torch.where(keep, rob, x_plain)
+
+    return tree_map(sel, theta2_active, plain)
 
 
 def global_aggregate(theta, group_weights: torch.Tensor):

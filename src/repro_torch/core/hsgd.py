@@ -21,7 +21,9 @@ Per-group and per-device gradients are ``torch.func.vmap`` over
 ``HSGDRunner.round_fn`` builds one round per (P, Q, k, b) bucket, as the
 reference compiles one executor per bucket; the adaptive controller and the
 privacy path (DP noise in the exchange, secure-aggregation masks on eq. (1))
-drive it round by round.
+drive it round by round. ``cohort_round_fn`` and ``fault_round_fn`` do the
+same for the population runtime's sampled cohorts (one executor per device-
+slot bucket A), the latter with seeded faults and the screening defense.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from repro_torch.models.split_model import HybridModel
 from repro_torch.optim import halving_schedule
 
 
-class HSGDState(NamedTuple):  # reprolint: disable=RP8 — registered with the checkpoint slice
+class HSGDState(NamedTuple):
     theta0: Any  # [M, ...] combined models
     theta1: Any  # [M, ...] hospital towers
     theta2: Any  # [M, A, ...] sampled-device towers
@@ -90,6 +92,25 @@ def init_state(generator: torch.Generator, model: HybridModel, fed: FederationCo
     batch, z1, z2 = _placeholder_ctx(model, theta1, theta2, data, M, A)
     stale = {"theta0": tree_map(torch.clone, theta0), "z1": z1, "z2": z2}
     return HSGDState(theta0, theta1, theta2, stale, batch, generator, 0)
+
+
+def resize_cohort(state: HSGDState, model: HybridModel, data, A_new: int) -> HSGDState:
+    """Re-bucket the device-slot axis A between rounds ([M, A, ...] -> [M, A_new, ...]).
+
+    Valid only at a round boundary, where every cohort round has already
+    checked its device towers back in (θ2 slots uniform: the round ends with
+    θ2 ← broadcast(masked eq. (1))), so collapsing the slot axis by eq. (1)
+    and re-broadcasting is exact. The stale/batch placeholders are re-shaped
+    as ``init_state`` shapes them; the next round's first exchange overwrites
+    them unread.
+    """
+    M, A = tree_leaves(state.theta2)[0].shape[:2]
+    if A == A_new:
+        return state
+    theta2 = F.broadcast_to_devices(F.local_aggregate(state.theta2), A_new)
+    batch, z1, z2 = _placeholder_ctx(model, state.theta1, theta2, data, M, A_new)
+    stale = {"theta0": state.stale["theta0"], "z1": z1, "z2": z2}
+    return state._replace(theta2=theta2, stale=stale, batch=batch)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +216,94 @@ def local_sgd_step_stats(
 
 
 # ---------------------------------------------------------------------------
+# Fault injection + screening (the fault-tolerant step)
+# ---------------------------------------------------------------------------
+
+
+def _select_fault(x: torch.Tensor, fault: torch.Tensor, op) -> torch.Tensor:
+    """``op(x, f)`` where the per-worker fault term f (broadcast from its
+    leading axes) is nonzero, else x itself. Selected with ``torch.where``,
+    never computed as a blanket ``x + 0``: adding 0.0 turns -0.0 into +0.0,
+    and a clean worker must come out bit for bit. NaN terms select the
+    faulty branch (NaN != 0)."""
+    f = fault.reshape(tuple(fault.shape) + (1,) * (x.dim() - fault.dim())).to(x.dtype)
+    return torch.where(f != 0, op(x, f), x)
+
+
+def _inject_grads(g2, grad_fault: torch.Tensor):
+    """Add the per-device fault term where nonzero: [M, A] -> every g2 leaf.
+
+    The reference puts the injection behind a ``lax.cond`` on any nonzero
+    term; here it is always the select, which returns g2's values on clean
+    rounds without a host sync."""
+    return tree_map(lambda g: _select_fault(g, grad_fault, torch.add), g2)
+
+
+def local_sgd_step_guarded(
+    model: HybridModel,
+    state: HSGDState,
+    lr: float,
+    pmask: torch.Tensor,
+    grad_fault: Optional[torch.Tensor] = None,
+    screen: bool = False,
+    zmax: float = 8.0,
+) -> Tuple[HSGDState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``local_sgd_step`` with optional fault injection and screening.
+
+    Screening is ``torch.where`` masking (no host syncs), and with every mask
+    all-ones the applied update is bit-identical to the unguarded step. Per
+    step it zeroes:
+
+      * device updates whose g2 is non-finite, or whose gradient sq-norm
+        exceeds ``zmax² ×`` the group's masked median device sq-norm
+        (floored by the fleet-wide median: a per-group cut alone falsely
+        flags the one device that still has signal once its peers converge);
+      * group (θ0, θ1) updates whose hospital gradient is non-finite, or,
+        with ≥ 3 groups, an outlier against the cross-group median norm.
+
+    Returns (state, loss, dev_ok [M, A], grp_ok [M]); the reported loss
+    averages only unflagged groups when any group is flagged.
+    """
+    losses, g0, g1, g2 = _local_grads(model, state)
+    if grad_fault is not None:
+        g2 = _inject_grads(g2, grad_fault)
+    M = pmask.shape[0]
+    if not screen:
+        dev_ok = torch.ones(pmask.shape, dtype=torch.float32, device=pmask.device)
+        grp_ok = torch.ones((M,), dtype=torch.float32, device=pmask.device)
+        return _apply_sgd(state, lr, g0, g1, g2), torch.mean(losses), dev_ok, grp_ok
+
+    dn2 = F.worker_sqnorm(g2, lead=2)  # [M, A]
+    finite_d = torch.isfinite(dn2)
+    real = pmask * finite_d
+    med = F.masked_median_values(dn2, real)  # [M]
+    fleet = F.masked_median_values(dn2.reshape(1, -1), real.reshape(1, -1))[0]
+    cut = (zmax * zmax) * torch.clamp_min(torch.maximum(med, fleet), 1e-30)
+    dev_ok = (finite_d & (dn2 <= cut[:, None])).float()
+
+    hn2 = F.worker_sqnorm(g0, lead=1) + F.worker_sqnorm(g1, lead=1)  # [M]
+    grp_fin = torch.isfinite(hn2)
+    if M >= 3:  # the cross-group outlier cut needs a meaningful median
+        gmed = F.masked_median_values(hn2[None, :], grp_fin[None, :].float())[0]
+        gcut = (zmax * zmax) * torch.clamp_min(torch.maximum(gmed, fleet), 1e-30)
+        grp_fin = grp_fin & (hn2 <= gcut)
+    grp_ok = grp_fin.float()
+
+    def masked(g, ok):
+        return torch.where(ok.reshape(tuple(ok.shape) + (1,) * (g.dim() - ok.dim())) > 0, g, 0.0)
+
+    g0 = tree_map(lambda g: masked(g, grp_ok), g0)
+    g1 = tree_map(lambda g: masked(g, grp_ok), g1)
+    g2 = tree_map(lambda g: masked(g, dev_ok), g2)
+
+    n_ok = torch.sum(grp_ok)
+    # where, not a multiply: a flagged group's NaN loss must not poison the sum
+    loss_ok = torch.sum(torch.where(grp_ok > 0, losses, 0.0)) / torch.clamp_min(n_ok, 1.0)
+    loss = torch.where(n_ok == M, torch.mean(losses), loss_ok)
+    return _apply_sgd(state, lr, g0, g1, g2), loss, dev_ok, grp_ok
+
+
+# ---------------------------------------------------------------------------
 # Exchange + aggregations
 # ---------------------------------------------------------------------------
 
@@ -207,6 +316,10 @@ def exchange(
     compression_k: float = 0.0,
     quant_levels: int = 0,
     idx: Optional[torch.Tensor] = None,
+    pmask: Optional[torch.Tensor] = None,
+    trust: Optional[torch.Tensor] = None,
+    msg_fault: Optional[torch.Tensor] = None,
+    screen: bool = False,
     dp_clip=None,
     dp_sigma=None,
     dp_noise: Optional[torch.Tensor] = None,
@@ -220,7 +333,17 @@ def exchange(
     CUDA kernel on the card, its plain version on the CPU.
 
     ``idx`` ([M, A] data-row indices) pins the participants instead of
-    drawing them from the state's generator.
+    drawing them from the state's generator. The cohort path (see
+    ``core/population.py``) passes the round's cohort as ``idx`` (padded to
+    the bucket size by repeating real members) with ``pmask`` ([M, A], 0 on
+    padding slots), which eq. (1) excludes.
+
+    The fault-tolerant path adds three legs, all ``torch.where`` selections
+    so the clean case is the plain path bit for bit: ``trust`` ([M, A], 1.0 =
+    the slot's updates passed screening) switches eq. (1) to
+    ``robust_local_aggregate`` per ``fed.robust_agg``; ``msg_fault`` ([M],
+    0 = clean) multiplies the group's compressed ζ2 uplink (bit-flip
+    corruption); ``screen`` zeroes non-finite ζ2 entries at the receiver.
 
     Privacy legs: ``dp_clip`` (with ``dp_sigma``) runs the message through
     the fused per-row clip + Gaussian-noise stage, with the noise rows drawn
@@ -230,11 +353,15 @@ def exchange(
     """
     device = data["x1"].device
     dp = dp_clip is not None
-    if agg_masks is not None:  # eq (1) over masked uplinks
+    if trust is not None and pmask is not None:  # eq (1) under screening
+        theta2_group = F.robust_local_aggregate(
+            state.theta2, pmask, trust, method=fed.robust_agg, trim_frac=fed.trim_frac,
+            agg_masks=agg_masks)
+    elif agg_masks is not None:  # eq (1) over masked uplinks
         theta2_group = F.secure_local_aggregate(
-            F.secure_mask_uplink(state.theta2, agg_masks), state.theta2)
+            F.secure_mask_uplink(state.theta2, agg_masks), state.theta2, pmask)
     else:
-        theta2_group = F.local_aggregate(state.theta2)  # eq (1)
+        theta2_group = F.local_aggregate(state.theta2, pmask)  # eq (1)
     A = fed.sampled_devices if idx is None else idx.shape[1]
     theta2 = F.broadcast_to_devices(theta2_group, A)  # line 15
 
@@ -257,12 +384,25 @@ def exchange(
                               compression_k or 1.0, quant_levels, **dp_kw)
         stale_theta0, z1, z2 = msg["theta0"], msg["z1"], msg["z2"]
 
+    if msg_fault is not None:  # corruption hits the compressed uplink payload
+        z2 = tree_map(lambda x: _select_fault(x, msg_fault, torch.mul), z2)
+    if screen:  # receiver-side screen: drop (zero) non-finite ζ2 entries.
+        # Only the device uplink needs it: the fault model corrupts ζ2 in
+        # flight, while θ0/ζ1 come from hospital state that the per-step
+        # group screen keeps finite.
+        z2 = tree_map(lambda x: torch.where(torch.isfinite(x), x, 0.0), z2)
+
     stale = {"theta0": stale_theta0, "z1": z1, "z2": z2}
     return state._replace(theta2=theta2, stale=stale, batch=batch)
 
 
 def global_aggregation(state: HSGDState, fed: FederationConfig, group_weights) -> HSGDState:
-    """Eq. (2) + broadcasts (Alg. 1 lines 3–9)."""
+    """Eq. (2) + broadcasts (Alg. 1 lines 3–9).
+
+    The device-slot count is read off the state, so the cohort path, whose
+    slot axis is the current bucket size, reuses this unchanged. Slots are
+    uniform at round boundaries (check-in), so the unmasked eq. (1) here is
+    exact."""
     M = fed.num_groups
     A = tree_leaves(state.theta2)[0].shape[1]
     theta2_group = F.local_aggregate(state.theta2)
@@ -358,12 +498,13 @@ class HSGDRunner:
     def _round_impl(self, state: HSGDState, data, group_weights, lr: Callable[[int], float],
                     Q: int, lam: int, compression_k: float, quant_levels: int,
                     collect: bool, participants=None, dp_clip=None, dp_sigma=None,
-                    dp_noise=None, dp_generator=None, agg_masks=None):
+                    dp_noise=None, dp_generator=None, agg_masks=None, pmask=None):
         """One global round: global aggregation, then Λ × (exchange, Q steps).
 
         With ``collect`` every step also returns the §VI-B probe stats; ρ
         secants pair consecutive steps *within* an interval only (same batch
         ⇒ a clean Lipschitz quotient), so Q = 1 rounds yield no ρ samples.
+        ``pmask`` ([M, A]) marks a cohort round's real device slots.
         """
         fed, model = self.fed, self.model
         if self.do_global_agg:
@@ -375,7 +516,7 @@ class HSGDRunner:
                 idx=None if participants is None else participants[i],
                 dp_clip=dp_clip, dp_sigma=dp_sigma,
                 dp_noise=None if dp_noise is None else dp_noise[i],
-                dp_generator=dp_generator, agg_masks=agg_masks)
+                dp_generator=dp_generator, agg_masks=agg_masks, pmask=pmask)
             if not collect:
                 for _ in range(Q):
                     state, loss = local_sgd_step(model, state, lr(state.step))
@@ -400,6 +541,18 @@ class HSGDRunner:
             return state, torch.stack(stats["loss"])
         return state, {k: torch.stack(v) for k, v in stats.items()}
 
+    def _bucket(self, P: int, Q: int, compression_k: Optional[float],
+                quant_levels: Optional[int], cohort_size: int = 1) -> Tuple[float, int]:
+        """Check a round's (P, Q[, cohort size]) and resolve its (k, b),
+        ``None`` taking the training config's."""
+        if P < 1 or Q < 1 or P % Q:
+            raise ValueError(f"P={P} must be a positive multiple of Q={Q}")
+        if cohort_size < 1:
+            raise ValueError(f"cohort_size={cohort_size} must be >= 1")
+        k = self.train.compression_k if compression_k is None else compression_k
+        b = self.train.quantization_bits if quant_levels is None else quant_levels
+        return k, b
+
     def round_fn(self, P: int, Q: int, compression_k: Optional[float] = None,
                  quant_levels: Optional[int] = None, collect_stats: bool = True,
                  dp: bool = False, secure_agg: bool = False):
@@ -421,10 +574,7 @@ class HSGDRunner:
         ``secure_agg`` it takes ``agg_masks``. ``participants`` ([Λ, M, A])
         pins the round's draws.
         """
-        if P < 1 or Q < 1 or P % Q:
-            raise ValueError(f"P={P} must be a positive multiple of Q={Q}")
-        k = self.train.compression_k if compression_k is None else compression_k
-        b = self.train.quantization_bits if quant_levels is None else quant_levels
+        k, b = self._bucket(P, Q, compression_k, quant_levels)
         key = (P, Q, k, b, collect_stats)
         if dp or secure_agg:
             key = key + (dp, secure_agg)
@@ -441,11 +591,8 @@ class HSGDRunner:
                 if participants is not None and len(participants) != lam:
                     raise ValueError(f"participants holds {len(participants)} draws; "
                                      f"a round needs Λ = {lam}")
-                # a number is η for the round, rounded to fp32 as the
-                # reference's traced scalar is
-                lr_of = lr if callable(lr) else (lambda step, eta=float(np.float32(lr)): eta)
                 return self._round_impl(
-                    state, data, group_weights, lr_of, Q, lam, k, b, collect_stats,
+                    state, data, group_weights, _lr_of(lr), Q, lam, k, b, collect_stats,
                     participants=participants,
                     dp_clip=dp_clip if dp else None, dp_sigma=dp_sigma if dp else None,
                     dp_noise=dp_noise if dp else None,
@@ -453,6 +600,117 @@ class HSGDRunner:
                     agg_masks=agg_masks if secure_agg else None)
 
             fn = self._round_cache[key] = hsgd_round
+        return fn
+
+    def cohort_round_fn(self, P: int, Q: int, cohort_size: int,
+                        compression_k: Optional[float] = None,
+                        quant_levels: Optional[int] = None,
+                        collect_stats: bool = True):
+        """The round executor over a sampled cohort of device slots.
+
+        fn(state, data, group_weights, lr, participants, pmask) -> (state,
+        stats|losses). ``participants`` [M, cohort_size] are the round's data
+        rows (padded to the power-of-two bucket by repeating real members),
+        ``pmask`` [M, cohort_size] is 1 on real slots; both, and the [M]
+        ``group_weights``, may be numpy arrays (the population scheduler's)
+        or tensors. The state's device axis must already equal
+        ``cohort_size`` (see ``resize_cohort``).
+
+        The round ends with a check-in, θ2 ← broadcast(masked eq. (1)), so
+        device slots leave the round uniform: padding slots never leak into
+        the next round and re-bucketing between rounds stays exact.
+
+        Cached per (P, Q, cohort_size, k, b, collect) bucket, the reference's
+        key: a population run whose cohort sizes vary builds one executor per
+        bucket.
+        """
+        k, b = self._bucket(P, Q, compression_k, quant_levels, cohort_size)
+        key = (P, Q, cohort_size, k, b, collect_stats)
+        fn = self._round_cache.get(key)
+        if fn is None:
+            lam = P // Q
+
+            def hsgd_cohort_round(state, data, group_weights, lr, participants, pmask):
+                idx, pmask, w = _cohort_operands(data, participants, pmask, group_weights)
+                state, out = self._round_impl(
+                    state, data, w, _lr_of(lr), Q, lam, k, b, collect_stats,
+                    participants=[idx] * lam, pmask=pmask)
+                theta2_group = F.local_aggregate(state.theta2, pmask)
+                state = state._replace(theta2=F.broadcast_to_devices(theta2_group, cohort_size))
+                return state, out
+
+            fn = self._round_cache[key] = hsgd_cohort_round
+        return fn
+
+    def _guarded_round_impl(self, state, data, group_weights, lr: Callable[[int], float],
+                            Q: int, lam: int, k: float, b: int, idx, pmask,
+                            grad_fault, msg_fault, screen: bool):
+        """Cohort round with fault injection and (optionally) the defense:
+        per-step screening masks, receiver-side message screening, and the
+        ``fed.robust_agg`` aggregation over surviving slots. With all fault
+        terms zero and screening on, every mask stays all-ones and the
+        parameters (and losses) are bit-identical to the cohort round's."""
+        fed, model = self.fed, self.model
+        if self.do_global_agg:
+            state = global_aggregation(state, fed, group_weights)
+        trust = torch.ones_like(pmask)
+        losses = []
+        for _ in range(lam):
+            state = exchange(model, state, data, fed, k, b, idx=idx, pmask=pmask,
+                             trust=trust if screen else None, msg_fault=msg_fault,
+                             screen=screen)
+            for _ in range(Q):
+                state, loss, dev_ok, _ = local_sgd_step_guarded(
+                    model, state, lr(state.step), pmask, grad_fault=grad_fault,
+                    screen=screen, zmax=fed.screen_zmax)
+                # sticky within the round: a flagged device stays out of every
+                # later aggregation (x1.0 is the identity on clean rounds)
+                trust = trust * dev_ok
+                losses.append(loss)
+        # check-in: device slots leave the round uniform (robust under screen)
+        if screen:
+            theta2_group = F.robust_local_aggregate(
+                state.theta2, pmask, trust, method=fed.robust_agg, trim_frac=fed.trim_frac)
+        else:
+            theta2_group = F.local_aggregate(state.theta2, pmask)
+        state = state._replace(theta2=F.broadcast_to_devices(theta2_group, pmask.shape[1]))
+        flagged = torch.sum(pmask * (1.0 - trust))
+        return state, torch.stack(losses), flagged
+
+    def fault_round_fn(self, P: int, Q: int, cohort_size: int,
+                       compression_k: Optional[float] = None,
+                       quant_levels: Optional[int] = None,
+                       robust: bool = True):
+        """The fault-injectable round executor (the resilient runtime's).
+
+        fn(state, data, group_weights, lr, participants, pmask, grad_fault,
+        msg_fault) -> (state, losses [P], flagged). ``grad_fault`` [M, A] and
+        ``msg_fault`` [M] are per-call operands (0 = clean), so re-drawing
+        faults each round reuses the executor. ``robust=True`` folds the
+        defense in (screening masks + ``fed.robust_agg`` aggregation);
+        ``robust=False`` is the naive stack: the same injection, no defense.
+        ``flagged`` (a 0-d tensor) counts real slot-updates the screen
+        rejected (always 0 on the naive path).
+
+        Cached per (P, Q, cohort_size, k, b, "robust"|"faulty") beside the
+        plain executors, the reference's keys.
+        """
+        k, b = self._bucket(P, Q, compression_k, quant_levels, cohort_size)
+        key = (P, Q, cohort_size, k, b, "robust" if robust else "faulty")
+        fn = self._round_cache.get(key)
+        if fn is None:
+            lam = P // Q
+
+            def hsgd_fault_round(state, data, group_weights, lr, participants, pmask,
+                                 grad_fault, msg_fault):
+                idx, pmask, w = _cohort_operands(data, participants, pmask, group_weights)
+                dev = data["x1"].device
+                return self._guarded_round_impl(
+                    state, data, w, _lr_of(lr), Q, lam, k, b, idx, pmask,
+                    torch.as_tensor(grad_fault, dtype=torch.float32, device=dev),
+                    torch.as_tensor(msg_fault, dtype=torch.float32, device=dev), screen=robust)
+
+            fn = self._round_cache[key] = hsgd_fault_round
         return fn
 
     def run_private(self, state: HSGDState, data, group_weights, rounds: int,
@@ -505,6 +763,30 @@ class HSGDRunner:
         return state, out
 
 
+def _lr_of(lr) -> Callable[[int], float]:
+    """A step -> η schedule: ``lr`` itself if callable, else η for the whole
+    round, rounded to fp32 as the reference's traced scalar is."""
+    if callable(lr):
+        return lr
+    eta = float(np.float32(lr))
+    return lambda step: eta
+
+
+def _cohort_operands(data, participants, pmask, group_weights):
+    """A cohort round's (idx, pmask, weights) as tensors on the data's
+    device: the scheduler hands numpy arrays."""
+    dev = data["x1"].device
+    return (torch.as_tensor(participants, device=dev).long(),
+            torch.as_tensor(pmask, dtype=torch.float32, device=dev),
+            torch.as_tensor(group_weights, dtype=torch.float32, device=dev))
+
+
 def make_group_weights(data) -> torch.Tensor:
     """K_m weights from the per-group valid-sample counts."""
     return torch.sum(data["valid"].float(), dim=1)
+
+
+# checkpoint restores return a real HSGDState, not an anonymous namedtuple
+from repro_torch.checkpoint.ckpt import register_state_class as _register_state_class  # noqa: E402
+
+_register_state_class(HSGDState)

@@ -1,5 +1,6 @@
 """Evaluation metrics used by the paper: loss, accuracy, AUC of ROC,
-precision, recall, F1 (macro, one-vs-rest for multi-class).
+precision, recall, F1 (macro, one-vs-rest for multi-class), and the
+smoothed loss curve and steps-to-target of the adaptive benchmarks.
 
 The forward runs on the device of the parameters; the statistics are the
 reference's numpy code.
@@ -40,6 +41,24 @@ def evaluate_global(model: HybridModel, params, x1, x2, y, batch: int = 512) -> 
     out.update(precision_recall_f1(y, pred, logits.shape[-1]))
     out["auc_roc"] = auc_roc_ovr(y, _softmax(logits))
     return out
+
+
+def smoothed_losses(losses, window: int = 4) -> np.ndarray:
+    """Trailing-mean smoothing of a per-step loss curve (window clamped to
+    the prefix length at the start, so output[i] averages steps max(0, i-w+1)..i)."""
+    losses = np.asarray(losses, np.float64)
+    w = max(1, int(window))
+    c = np.cumsum(np.concatenate([[0.0], losses]))
+    idx = np.arange(1, len(losses) + 1)
+    lo = np.maximum(idx - w, 0)
+    return (c[idx] - c[lo]) / (idx - lo)
+
+
+def steps_to_target(losses, target: float, window: int = 4):
+    """First step index whose smoothed loss reaches ``target``; None if never."""
+    sm = smoothed_losses(losses, window)
+    hits = np.flatnonzero(sm <= target)
+    return int(hits[0]) if len(hits) else None
 
 
 def _logsumexp(x):

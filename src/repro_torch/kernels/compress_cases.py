@@ -23,7 +23,9 @@ def edge_case_rows(n: int, seed: int = 0):
     values with many tied magnitudes, a five-value row, all-zero rows (k = 1
     and k = 0), ±inf (k = 1 and k = len/4), a NaN (k = 2 and k = 0),
     subnormals, values near the fp32 maximum (lo + hi overflows to inf in
-    the bisection), signed zeros."""
+    the bisection), signed zeros, and rows with no finite value, as a
+    diverged model's message holds them: all NaN, all +inf, all -inf,
+    alternating ±inf, NaN mixed with ±inf."""
     g = torch.Generator().manual_seed(seed * 7919 + n)
     base = lambda: torch.randn(n, generator=g)
     half, quarter = max(1, n // 2), max(1, n // 4)
@@ -34,13 +36,20 @@ def edge_case_rows(n: int, seed: int = 0):
     zeros = torch.zeros(n)
     zeros[::2] = -0.0
     zeros[::5] = base()[::5]
+    inf = float("inf")
+    signed_inf = torch.full((n,), inf)
+    signed_inf[1::2] = -inf
+    nonfinite = torch.full((n,), float("nan"))
+    nonfinite[::3], nonfinite[1::5] = inf, -inf
     cases = [(base(), n, quarter), (base(), half, max(1, half // 3)), (base(), n, 0),
              (base(), n, -3), (base(), n, n), (base(), n, n + 5), (base(), 0, 1),
              (torch.round(base() * 3), n, quarter),
              (torch.randint(-2, 3, (n,), generator=g).float(), n, half),
              (torch.zeros(n), n, 1), (torch.zeros(n), n, 0),
              (inf_row, n, 1), (inf_row, n, quarter), (nan_row, n, 2), (nan_row, n, 0),
-             (base() * 1e-40, n, quarter), (base() * 1e38, n, quarter), (zeros, n, n)]
+             (base() * 1e-40, n, quarter), (base() * 1e38, n, quarter), (zeros, n, n),
+             (torch.full((n,), float("nan")), n, quarter), (torch.full((n,), inf), n, quarter),
+             (torch.full((n,), -inf), n, 1), (signed_inf, n, half), (nonfinite, n, quarter)]
     x = torch.empty((len(cases), n))
     x[0::2], x[1::2] = float("nan"), 1e30
     for r, (vals, ln, _) in enumerate(cases):

@@ -13,7 +13,17 @@ device time of the port's own kernels, and the kernels that took the most
 device time. ``--trace`` keeps the Chrome trace. It takes the training
 flags of ``repro_torch.launch.train``, the privacy flags and ``--adaptive``
 included (each timed call then runs the private round loop, or a whole
-adaptive run of ``--rounds`` × P steps), and needs a CUDA device.
+adaptive run of ``--rounds`` × P steps), and the population and fault
+flags (each timed call is then a whole population run of ``--rounds``
+rounds from the initial model, on the runtime the flags pick, and the line
+adds its simulated seconds). A population run builds its runner, initial
+state, device registry and scheduler inside the call; that setup is timed
+on its own (the mean of three zero-round runs, ``setup_s``) and taken out
+of ``wall_s`` before steps/s and the busy share are computed
+(``wall_with_setup_s`` keeps the whole). It needs a CUDA device.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_train --population semi_async \
+      --compression-k 0.25 --quantization 128 --rounds 10 [--fault-nan 0.05 ...]
 """
 from __future__ import annotations
 
@@ -75,21 +85,39 @@ def main(argv=None):
     if device.type != "cuda":
         raise SystemExit("profile_train measures the card: run it with --device cuda")
     model, fed, train, data, w, _ = T.setup_ehealth(args, device)
-    runner, eff_fed = make_runner(args.algorithm, model, fed, train)
-    state = init_state(torch.Generator().manual_seed(args.seed), model, eff_fed, data)
+    sim_seconds = {}
+    if args.population:
+        state = None
 
-    def run_rounds(state, rounds):
-        state, losses, _, _ = T.train_rounds(args, model, fed, runner, state, data, w,
-                                             rounds)
-        return state, losses
+        def run_rounds(state, rounds):
+            res = T.population_rounds(args, model, fed, train, data, rounds)
+            sim_seconds["last"] = res["sim_seconds"]
+            return state, res["losses"]
+    else:
+        runner, eff_fed = make_runner(args.algorithm, model, fed, train)
+        state = init_state(torch.Generator().manual_seed(args.seed), model, eff_fed, data)
+
+        def run_rounds(state, rounds):
+            state, losses, _, _ = T.train_rounds(args, model, fed, runner, state, data, w,
+                                                 rounds)
+            return state, losses
 
     state, _ = run_rounds(state, 1)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
+    setup_s = 0.0
+    if args.population:  # the population run's own setup, timed apart
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run_rounds(state, 0)
+            torch.cuda.synchronize()
+            setup_s += (time.perf_counter() - t0) / 3
+
     t0 = time.perf_counter()
     state, losses = run_rounds(state, args.rounds)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    wall_with_setup_s = time.perf_counter() - t0
+    wall_s = wall_with_setup_s - setup_s
     steps = int(len(losses))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -112,8 +140,12 @@ def main(argv=None):
         "algorithm": args.algorithm, "groups": args.groups, "devices": args.devices,
         "adaptive": args.adaptive, "dp_clip": args.dp_clip, "dp_sigma": args.dp_sigma,
         "secure_agg": args.secure_agg,
+        "population": args.population, "no_defense": args.no_defense,
+        "faults": {flag: getattr(args, flag) for flag in T.FAULT_RATES},
+        "sim_seconds": sim_seconds.get("last"),
         "rounds": args.rounds, "steps": steps,
         "wall_s": wall_s, "steps_per_s": steps / wall_s,
+        "setup_s": setup_s, "wall_with_setup_s": wall_with_setup_s,
         "profiled_wall_s": profiled_wall_s,
         "device_busy_s": busy,
         "device_busy_share_of_wall": busy / wall_s,

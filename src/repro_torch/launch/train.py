@@ -7,10 +7,13 @@ the card unless ``--device cpu`` is given.
 
 The parser takes every flag of ``repro.launch.train``. This package runs
 the fixed-interval e-health path, its privacy-hardened variant (``--dp-clip``,
-``--dp-sigma``, ``--epsilon``, ``--delta``, ``--secure-agg``) and the §VI
+``--dp-sigma``, ``--epsilon``, ``--delta``, ``--secure-agg``), the §VI
 adaptive loop (``--adaptive``, with ``--byte-budget-mb``, ``--target-bound``,
-``--max-interval`` and the privacy flags). The population, fault,
-checkpoint and ``--arch`` flags raise ``SystemExit``.
+``--max-interval`` and the privacy flags), the population runtime
+(``--population sync|semi_async|adaptive`` over a simulated device fleet),
+its fault-tolerant variant (the ``--fault-*`` flags, ``--preempt-round``,
+``--no-defense``, ``--ckpt-every``, ``--resume``) and ``--checkpoint``.
+``--arch`` and ``--smoke`` (the LLM path) raise ``SystemExit``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --model paper-cnn \
@@ -19,6 +22,10 @@ Examples:
       --dp-clip 1 --dp-sigma 1 --secure-agg --rounds 10
   PYTHONPATH=src python -m repro_torch.launch.train --algorithm c-hsgd \
       --adaptive --dp-clip 1 --dp-sigma 1 --epsilon 25 --rounds 10
+  PYTHONPATH=src python -m repro_torch.launch.train --population semi_async \
+      --compression-k 0.25 --quantization 128 --rounds 10
+  PYTHONPATH=src python -m repro_torch.launch.train --population sync \
+      --fault-nan 0.05 --fault-dropout 0.1 --ckpt-every 2 --checkpoint ck
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.common.backend import resolve_device
 from repro_torch.common.config import FederationConfig, TrainConfig
 from repro_torch.core import metrics as MET
@@ -41,18 +49,22 @@ from repro_torch.core.controller import (
     gaussian_rho,
     ladder_from,
 )
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.hsgd import global_model, init_state, make_group_weights
+from repro_torch.core.population import (
+    PopulationConfig,
+    run_population,
+    run_population_adaptive,
+    run_population_resilient,
+)
 from repro_torch.data.partition import hybrid_partition
 from repro_torch.data.synthetic import DATASETS, flatten_for_tower, make_dataset, vertical_split
 from repro_torch.models.split_model import cnn_hybrid, lstm_hybrid
 
-# Flags of the reference CLI whose paths come with later slices.
-NOT_PORTED = (
-    "arch", "smoke", "population", "checkpoint", "ckpt_every", "resume",
-    "fault_dropout", "fault_nan", "fault_outlier", "fault_msg_corrupt", "fault_msg_loss",
-    "fault_msg_dup", "fault_latency", "preempt_round", "fault_seed", "fault_trace",
-    "no_defense",
-)
+# Flags of the reference CLI whose path (LLM-scale training) comes later.
+NOT_PORTED = ("arch", "smoke")
+FAULT_RATES = ("fault_dropout", "fault_nan", "fault_outlier", "fault_msg_corrupt",
+               "fault_msg_loss", "fault_msg_dup", "fault_latency")
 
 
 def make_paper_model(name: str, dataset: str):
@@ -142,7 +154,10 @@ def train_rounds(args, model, fed, runner, state, data, w, rounds: int):
 def run_ehealth(args) -> Tuple[dict, np.ndarray]:
     """Train and evaluate; prints the metrics JSON (after the ``[adaptive]``
     round lines of an adaptive run) and returns it with the per-step
-    training losses."""
+    training losses. ``--population`` runs go to ``run_population_cli``."""
+    if args.population:
+        out, res = run_population_cli(args)
+        return out, res["losses"]
     device = resolve_device(args.device)
     spec = DATASETS[args.dataset]
     algo = args.algorithm
@@ -194,7 +209,116 @@ def run_ehealth(args) -> Tuple[dict, np.ndarray]:
         m["secure_agg"] = bool(args.secure_agg)
         m["executors_compiled"] = len(runner._round_cache)
     print(json.dumps(m, indent=1))
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, gm, step=len(losses), extra={"metrics": m})
+        print(f"checkpoint -> {args.checkpoint}")
     return m, losses
+
+
+def _fault_plan_of(args):
+    """The CLI's FaultPlan, or None when every fault knob is at its default
+    (fault-free runs stay on the plain population executors)."""
+    plan = FaultPlan(
+        seed=args.fault_seed if args.fault_seed is not None else args.seed,
+        dropout_rate=args.fault_dropout,
+        nan_rate=args.fault_nan,
+        outlier_rate=args.fault_outlier,
+        msg_corrupt_rate=args.fault_msg_corrupt,
+        msg_loss_rate=args.fault_msg_loss,
+        msg_dup_rate=args.fault_msg_dup,
+        latency_spike_rate=args.fault_latency,
+        preempt_round=args.preempt_round,
+    )
+    return None if plan.empty else plan
+
+
+def is_resilient(args) -> bool:
+    """Any fault, checkpoint-cadence or resume flag routes a population run
+    to the resilient runtime."""
+    return _fault_plan_of(args) is not None or args.ckpt_every > 0 or args.resume
+
+
+def population_rounds(args, model, fed, train, data, rounds: int, params=None) -> dict:
+    """A population run of ``rounds`` rounds on the path the flags pick: the
+    resilient runtime, the adaptive wall-clock governor, or the plain
+    sync/semi-async cohort loop. Returns the runner's result dict."""
+    pop = PopulationConfig(
+        seed=args.trace_seed if args.trace_seed is not None else args.seed,
+        devices_per_group=args.pop_devices,
+        target_cohort=args.cohort,
+        deadline_quantile=args.deadline_quantile,
+        staleness_damping=args.staleness_damping,
+        max_staleness=args.max_staleness,
+        min_quorum=args.min_quorum,
+        max_retries=args.max_retries,
+        backoff_factor=args.backoff_factor,
+    )
+    if is_resilient(args):
+        return run_population_resilient(
+            model, fed, train, data, pop, rounds=rounds, faults=_fault_plan_of(args),
+            mode=args.population, robust=not args.no_defense, t_compute=args.t_compute,
+            params=params, ckpt_dir=args.checkpoint, ckpt_every=args.ckpt_every,
+            resume=args.resume)
+    if args.population == "adaptive":
+        acfg = AdaptiveConfig(
+            total_steps=rounds * fed.global_interval,
+            target_bound=args.target_bound,
+            byte_budget=args.byte_budget_mb * 1e6,
+            time_budget=args.time_budget,
+            max_interval=args.max_interval,
+            eta_max=max(args.lr * 10, 0.05),
+            ladder=ladder_from(args.compression_k, args.quantization),
+            init_probe=False,
+        )
+        return run_population_adaptive(model, fed, train, data, pop, acfg,
+                                       t_compute=args.t_compute, params=params)
+    return run_population(model, fed, train, data, pop, rounds=rounds,
+                          mode=args.population, t_compute=args.t_compute, params=params)
+
+
+def run_population_cli(args) -> Tuple[dict, dict]:
+    """Population-scale cohort run over a simulated device fleet (sync,
+    semi-async or adaptive); any fault/checkpoint/resume flag routes it to
+    the resilient runtime. Prints the reference's report and returns it
+    with the run's result dict."""
+    device = resolve_device(args.device)
+    model, fed, train, data, _, _ = setup_ehealth(args, device)
+    pop_seed = args.trace_seed if args.trace_seed is not None else args.seed
+    t0 = time.time()
+    res = population_rounds(args, model, fed, train, data, args.rounds)
+    out = {
+        "mode": args.population,
+        "trace_seed": pop_seed,
+        "steps": int(len(res["losses"])),
+        "loss_first": float(res["losses"][0]),
+        "loss_last": float(res["losses"][-1]),
+        "sim_seconds": res["sim_seconds"],
+    }
+    if is_resilient(args):
+        fl = res["fault_log"]
+        out.update({
+            "recovered": res["recovered"],
+            "rollbacks": res["rollbacks"],
+            "devices_dropped": int(sum(r["dropped"] for r in fl)),
+            "grad_faults": int(sum(r["grad_faulted"] for r in fl)),
+            "msg_faults": int(sum(r["msg_faulted"] for r in fl)),
+            "updates_flagged": float(sum(r["flagged_updates"] for r in fl)),
+            "round_retries": int(sum(r["retries"] for r in fl)),
+        })
+    else:
+        out["staleness_hist"] = {str(k): v for k, v in res["staleness_hist"].items()}
+    out["executors_compiled"] = len(res["runner"]._round_cache)
+    out["wall_s"] = round(time.time() - t0, 2)
+    print(json.dumps(out, indent=1))
+    if is_resilient(args) and args.fault_trace:
+        res["injector"].save_trace(args.fault_trace)
+        print(f"fault trace -> {args.fault_trace}")
+    if args.checkpoint and not args.ckpt_every:
+        # no periodic cadence: persist the final state the classic way
+        save_checkpoint(args.checkpoint, res["state"], step=len(res["losses"]),
+                        extra={"sim_seconds": res["sim_seconds"]})
+        print(f"checkpoint -> {args.checkpoint}")
+    return out, res
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -264,7 +388,35 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def validate_args(ap: argparse.ArgumentParser, args) -> None:
-    """The reference's checks of the privacy flags, as argparse errors."""
+    """The reference's flag checks, as argparse errors before any work; the
+    population path's flag combinations are checked here too."""
+    for flag in FAULT_RATES:
+        v = getattr(args, flag)
+        if not 0.0 <= v <= 1.0:
+            ap.error(f"--{flag.replace('_', '-')} must be in [0, 1], got {v}")
+    if args.max_retries < 0:
+        ap.error(f"--max-retries must be >= 0, got {args.max_retries}")
+    if args.backoff_factor <= 1.0:
+        ap.error(f"--backoff-factor must be > 1, got {args.backoff_factor}")
+    if not 0.0 <= args.min_quorum <= 1.0:
+        ap.error(f"--min-quorum must be in [0, 1], got {args.min_quorum}")
+    if not 0.0 <= args.trim_frac < 0.5:
+        ap.error(f"--trim-frac must be in [0, 0.5), got {args.trim_frac}")
+    if args.preempt_round < -1:
+        ap.error(f"--preempt-round must be >= 0 (or -1 = never), got {args.preempt_round}")
+    if args.ckpt_every < 0:
+        ap.error(f"--ckpt-every must be >= 0, got {args.ckpt_every}")
+    if (args.resume or args.ckpt_every > 0) and not args.checkpoint:
+        ap.error("--resume/--ckpt-every need --checkpoint <dir> to hold the checkpoints")
+    if args.population:
+        if args.algorithm != "hsgd":
+            ap.error(f"--population drives the HSGD cohort loop; got --algorithm {args.algorithm}")
+        if is_private(args):
+            ap.error("--population does not combine with the privacy flags yet; "
+                     "use the fixed-interval or --adaptive e-health path")
+        if args.population == "adaptive" and is_resilient(args):
+            ap.error("--population adaptive does not combine with fault injection / "
+                     "checkpoint-resume; use sync or semi_async")
     if args.dp_clip < 0.0:
         ap.error(f"--dp-clip must be >= 0, got {args.dp_clip}")
     if args.dp_sigma < 0.0:

@@ -94,7 +94,8 @@ def test_model_config_and_registry_match_reference():
     jf = {f.name: f.default for f in dataclasses.fields(JaxModelConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     assert tf == jf
-    assert list_configs() == ["falcon-mamba-7b", "gemma3-1b", "stablelm-1.6b"]
+    assert list_configs() == ["falcon-mamba-7b", "gemma3-1b", "paper-cnn", "paper-lstm",
+                              "stablelm-1.6b"]
     for name in list_configs():
         for smoke in (False, True):
             got, want = get_config(name, smoke), jax_get_config(name, smoke)
