@@ -44,8 +44,29 @@ Phases, in order; any failure raises and the script exits nonzero:
   4e. the card against the CPU on the population path: 2 semi_async rounds
      from the same initial model, the same cohorts and round records,
      per-step losses within rtol 1e-3;
+  4f. the card against the CPU on the LLM path: 2 rounds at gemma3-1b's
+     smoke widths (--pods 2, k=0.25, b=128) from the same CPU-drawn model
+     and token stream, per-step losses within rtol 1e-3;
   5. a {"kernels": [...]} summary line, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
+
+The LLM-scale federation (phases 2, 2b and after 3h):
+  2, 2b. the edge-case matrix also holds widths past one block's shared
+     memory (58113, 65536, 262144: the wide body, one block a row) and the
+     last width of the shared-memory body (58112), for both kernels; the
+     head's rows of gemma3-1b's exchange message, [1152, 262144] at
+     k = 25 %, b = 128, are held bit for bit and timed beside their bound;
+  3i. ``repro_torch.launch.train --arch gemma3-1b`` at the published widths
+     (26 layers, d 1152, V 262144; --batch 2 --seq 64, random weights):
+     --steps 20 --compression-k 0.25 --quantization 128 --pods 2, and
+     --adaptive --steps 16 --max-interval 8 with the same k and b. Each
+     runs once with the counters zeroed just before and read just after:
+     exactly 4 compress launches (the message's row groups) an exchange
+     that compresses, one executor a bucket, finite losses that fall
+     within every exchange interval of two or more steps, steps/s and peak
+     device memory; and once with every row group held against plain as
+     it is made (torch.equal), then dropped, each launch timed by CUDA
+     events beside its bound.
 
 The population and fault-tolerant runtimes (after phase 3c):
   3f. ``repro_torch.launch.train --population sync`` and ``semi_async`` at the
@@ -168,8 +189,10 @@ from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref  # noqa: E4
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.timing import device_ms  # noqa: E402
-from repro_torch.launch.train import (parse_args, population_rounds, run_ehealth,  # noqa: E402
-                                      run_population_cli, setup_ehealth)
+from repro_torch.data.synthetic import llm_batch_fn  # noqa: E402
+from repro_torch.launch.steps import LLMRoundRunner  # noqa: E402
+from repro_torch.launch.train import (build_llm, parse_args, population_rounds,  # noqa: E402
+                                      run_ehealth, run_llm, run_population_cli, setup_ehealth)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.ssm import CHUNK as SSM_CHUNK  # noqa: E402
@@ -243,6 +266,15 @@ POP_ARGV = ["--model", "paper-cnn", "--dataset", "organamnist", "--algorithm", "
 FAULT_ARGV = ["--fault-dropout", "0.1", "--fault-nan", "0.05", "--fault-outlier", "0.05",
               "--fault-msg-corrupt", "0.05", "--ckpt-every", "2"]
 POP_ROUNDS = 10
+# the LLM-scale federation at gemma3-1b's published widths (phase 3i): the
+# reference CLI's --batch 2 --seq 64, random weights
+LLM_FIXED_ARGV = ["--arch", "gemma3-1b", "--steps", "20", "--compression-k", "0.25",
+                  "--quantization", "128", "--pods", "2"]
+LLM_ADAPTIVE_ARGV = ["--arch", "gemma3-1b", "--adaptive", "--steps", "16", "--max-interval", "8",
+                     "--compression-k", "0.25", "--quantization", "128"]
+# the head's rows of that message: [d_model, vocab] (phases 2 and 2b)
+HEAD_SHAPE = (1152, 262144)
+LLM_GROUPS = 4  # row groups of one gemma3-1b exchange message
 # checkpoints of phase 3g, inside the checkout's ignored build directory
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 
@@ -602,12 +634,13 @@ def serve_parity(arch, prompt_len, gen, *devices):
     return out
 
 
-def run_cli(argv):
-    """``run_ehealth`` on ``argv``, its stdout echoed: (metrics, losses, the
-    (P, rung) of each ``[adaptive] round`` line)."""
+def run_cli(argv, run=run_ehealth):
+    """``run`` (``run_ehealth`` or ``run_llm``) on ``argv``, its stdout
+    echoed: (metrics, losses, the (P, rung) of each ``[adaptive] round``
+    line)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        metrics, losses = run_ehealth(parse_args(argv))
+        metrics, losses = run(parse_args(argv))
     out = buf.getvalue()
     print(out, end="")
     rounds = [(int(p), int(r)) for p, r in
@@ -1011,6 +1044,157 @@ def same_start_population(*devices):
     return out
 
 
+def check_head_rows(device, bw, flops, dp: bool):
+    """Phases 2 and 2b at the LLM message's widest group, the head's rows
+    HEAD_SHAPE (k = 25%, b = 128): the wide body against plain
+    (torch.equal), timed beside its bound; the plain version is timed over
+    fewer replays (one call moves ~100 GB)."""
+    g = torch.Generator(device=device).manual_seed(3)
+    rows, n = HEAD_SHAPE
+    mat = torch.randn(HEAD_SHAPE, generator=g, device=device) * 0.02
+    k_rows = torch.full((rows,), round(0.25 * n), dtype=torch.int32, device=device)
+    len_rows = torch.full((rows,), n, dtype=torch.int32, device=device)
+    dp_args = dp_operands(mat, 1.0, 1.0) if dp else ()
+    got = fused_compress(mat, k_rows, 128, len_rows, *dp_args)
+    want = compress_rows_ref(mat, k_rows, 128, len_rows, *dp_args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tag = f"{'DP ' if dp else ''}LLM head rows {HEAD_SHAPE}"
+    check(torch.equal(got, want), f"{tag}: kernel differs from plain (max |diff| {err})")
+    del got, want
+    ms = device_ms(lambda: fused_compress(mat, k_rows, 128, len_rows, *dp_args), inner=2, reps=7)
+    plain_ms = device_ms(lambda: compress_rows_ref(mat, k_rows, 128, len_rows, *dp_args),
+                         inner=1, reps=3)
+    bound, bound_by = compress_bound_ms(mat, len_rows, 128, bw, flops, dp)
+    print(f"[kernel] {tag} levels=128 k=25%: bit-identical (wide body, one block a row) "
+          f"kernel_ms={ms} plain_ms={plain_ms} bound_ms={bound} ({bound_by}) "
+          f"bound/kernel={bound / ms} library_ms=null")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by}
+
+
+@contextlib.contextmanager
+def checked_groups(bw, flops):
+    """Hold every row group a run hands the compress kernel against the plain
+    version as it is made (torch.equal), then drop it: yields a list of
+    (shape, kernel ms from CUDA events around the launch, bound ms). The
+    kernel's wrapper still launches, and counts, every call."""
+    launch, seen = compress_kernels.fused_compress, []
+
+    def check_now(x, k, levels=0, row_len=None, *dp):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = launch(x, k, levels, row_len, *dp)
+        b.record()
+        want = compress_rows_ref(x, k, levels, row_len, *dp)
+        same = torch.equal(out, want)
+        check(same, f"an LLM exchange group of shape {tuple(x.shape)}: kernel differs from plain")
+        dp_on = bool(dp) and dp[-1] is not None
+        bound, _ = compress_bound_ms(x, row_len, levels, bw, flops, dp_on)
+        seen.append((tuple(x.shape), a.elapsed_time(b), bound))
+        return out
+
+    compress_kernels.fused_compress = check_now
+    try:
+        yield seen
+    finally:
+        compress_kernels.fused_compress = launch
+
+
+def compressing_exchanges(args, rounds) -> int:
+    """Exchanges of an LLM run that compress: rounds × Λ on the fixed path;
+    on the adaptive path (Λ = 1: P = Q) its rounds whose rung compresses."""
+    if not args.adaptive:
+        return (args.steps // args.p) * (args.p // args.q)
+    ladder = ladder_from(args.compression_k, args.quantization)
+    return sum(1 for _, rung in rounds if any(ladder[rung]))
+
+
+def interval_falls(args, rounds, losses):
+    """(loss at the first step, at the last step) of every exchange interval
+    of two or more steps: the steps of one interval train on one batch, so
+    the loss falls within it, while a fresh batch of 128 tokens drawn from
+    a vocabulary of 262 144 need not score better than the last one."""
+    lengths = [args.q] * (len(losses) // args.q) if not args.adaptive else [p for p, _ in rounds]
+    out, t = [], 0
+    for n in lengths:
+        if n >= 2:
+            out.append((float(losses[t]), float(losses[t + n - 1])))
+        t += n
+    return out
+
+
+def check_llm_paths(device, bw, flops):
+    """Phase 3i: the LLM-scale federation at gemma3-1b's published widths,
+    fixed (--pods 2) and adaptive (one pod), through the CLI. Each command
+    runs twice: once as it is (launch counts, executors, steps/s, peak
+    memory, finite losses), once with every row group held against plain
+    as it is made and each launch timed. Returns the report lines."""
+    summary = {}
+    for tag, argv in (("fixed", LLM_FIXED_ARGV), ("adaptive", LLM_ADAPTIVE_ARGV)):
+        argv = argv + ["--device", "cuda"]
+        args = parse_args(argv)
+        reset_launch_counts()
+        out, losses, rounds = run_cli(argv, run_llm)
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        buckets = len(set(rounds)) if args.adaptive else 1
+        want = compressing_exchanges(args, rounds) * LLM_GROUPS
+        print(f"[llm-{tag}] launches={counts} (expected {want // LLM_GROUPS} compressing "
+              f"exchanges x "
+              f"{LLM_GROUPS} groups) steps/s={out['steps'] / out['wall_s']} "
+              f"wall_s={out['wall_s']} peak_device_bytes={out['peak_device_bytes']} "
+              f"peak_device_GiB={out['peak_device_bytes'] / 2 ** 30} "
+              f"executors={out['executors_compiled']} rounds={rounds}")
+        check(counts == {"fused_compress": want}, f"LLM {tag}: launches {counts}, expected {want}")
+        check(out["executors_compiled"] == buckets,
+              f"LLM {tag}: {out['executors_compiled']} executors for {buckets} buckets")
+        check(np.isfinite(losses).all(), f"LLM {tag}: non-finite loss")
+        falls = interval_falls(args, rounds, losses)
+        print(f"[llm-{tag}] losses={losses.tolist()} (first, last) step of each exchange "
+              f"interval: {falls}")
+        check(falls and all(last < first for first, last in falls),
+              f"LLM {tag}: the loss did not fall within every exchange interval: {falls}")
+        with checked_groups(bw, flops) as seen:
+            _, _, rounds2 = run_cli(argv, run_llm)
+            torch.cuda.synchronize()
+        check(len(seen) == compressing_exchanges(args, rounds2) * LLM_GROUPS,
+              f"LLM {tag}: {len(seen)} groups checked")
+        by_shape = {}
+        for shape, ms, bound in seen:
+            by_shape.setdefault(shape, ([], bound))[0].append(ms)
+        for shape, (times, bound) in sorted(by_shape.items()):
+            print(f"[llm-{tag}] group {list(shape)}: {len(times)} launches, each held "
+                  f"torch.equal to plain; kernel ms (CUDA events around the launch) median "
+                  f"{float(np.median(times))} min {min(times)} bound_ms {bound} "
+                  f"bound/kernel {bound / float(np.median(times))}")
+        summary[tag] = {"steps_per_s": out["steps"] / out["wall_s"],
+                        "peak_device_bytes": out["peak_device_bytes"],
+                        "launches": counts["fused_compress"],
+                        "groups_ms": {str(list(k)): float(np.median(v[0]))
+                                      for k, v in by_shape.items()},
+                        "loss_first": out["loss_first"], "loss_last": out["loss_last"]}
+        torch.cuda.empty_cache()
+    return summary
+
+
+def same_start_llm(*devices):
+    """PARITY_ROUNDS fixed-cadence rounds of the LLM path at gemma3-1b's
+    smoke widths (--pods 2, k = 0.25, b = 128) on each device from one
+    CPU-drawn model and the same token stream: the losses per device."""
+    args = parse_args(["--arch", "gemma3-1b", "--smoke", "--pods", "2", "--compression-k",
+                       "0.25", "--quantization", "128", "--device", "cpu"])
+    cfg, model, init, _ = build_llm(args, torch.device("cpu"))
+    out = []
+    for dev in devices:
+        bf = llm_batch_fn(cfg, args.batch, args.seq, n_pods=args.pods, seed=args.seed, device=dev)
+        _, losses = LLMRoundRunner(model, n_pods=args.pods).run_fixed(
+            tree_map(lambda t: t.to(dev, copy=True), init), bf, PARITY_ROUNDS * args.p, args.p,
+            args.q, args.lr, args.compression_k, args.quantization)
+        out.append(torch.from_numpy(losses))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -1054,9 +1238,13 @@ def main() -> int:
             res = compare_compress(f"large ragged k={k_frac}", *big, lv, bw, flops, floor_ms)
             max_err = max(max_err, res["max_abs_err"])
     check_edge_cases(device, dp=False)
+    head_cmp = check_head_rows(device, bw, flops, dp=False)
 
     # -- phase 2b: the DP kernel against plain, bit for bit ------------------
     main_dp, max_err_dp = check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops, floor_ms)
+    head_dp = check_head_rows(device, bw, flops, dp=True)
+    max_err, max_err_dp = max(max_err, head_cmp["max_abs_err"]), max(max_err_dp,
+                                                                      head_dp["max_abs_err"])
 
     # -- phase 2c: the flash-attention kernel against plain ------------------
     flash_main, max_err_flash = check_flash_kernel(device, name)
@@ -1139,6 +1327,10 @@ def main() -> int:
     print(f"[population-summary] sync/semi_async (steps/s, sim s, compress launches)="
           f"{pop_stats} defense steps/s={defense_sps} "
           f"fault run compress launches={fault_counts}")
+
+    # -- phase 3i: the LLM-scale federation at full width ----------------------
+    llm_summary = check_llm_paths(device, bw, flops)
+    print(f"[llm-summary] {json.dumps(llm_summary)}")
 
     # -- phase 3d: the serving path at full width -----------------------------
     reset_launch_counts()
@@ -1238,6 +1430,16 @@ def main() -> int:
     check(h_card == h_cpu, "population path: card and CPU rounds differ (cohorts, clock)")
     check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
           f"population path: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
+
+    # -- phase 4f: the card against the CPU on the LLM path -------------------
+    reset_launch_counts()
+    l_cpu, l_card = same_start_llm(torch.device("cpu"), device)
+    rel = float(((l_card - l_cpu).abs() / l_cpu.abs()).max())
+    print(f"[parity-llm] compress launches on the card={launch_counts['fused_compress']} "
+          f"cpu={l_cpu.tolist()} cuda={l_card.tolist()} max_rel_diff={rel}")
+    check(launch_counts["fused_compress"] > 0, "the card's LLM parity run skipped the kernel")
+    check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
+          f"LLM path: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
 
     # -- phase 5: summary ----------------------------------------------------
     kernels = [{

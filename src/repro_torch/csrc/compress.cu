@@ -34,8 +34,14 @@
 //     the row to the fewest slots W that hold its valid prefix (an 11-wide
 //     row of the main message runs 1 slot of its 4), and every loop then
 //     runs W slots with no guard. Rows wider than 1024 keep one warp's n
-//     floats of shared memory (compress_row_smem), so every n up to 58112
-//     runs.
+//     floats of shared memory (compress_row_smem), up to the 58112 floats
+//     of one block's shared memory. Rows wider still (an LLM's vocabulary
+//     axis: 262144 floats) take the wide body (compress_row_wide): one
+//     block a row, read from device memory at every pass (16 bisection
+//     counts, the max, the extrema, the write), counts and extrema summed
+//     per warp by REDUX and across the block's warps in shared memory.
+//     It is the simple first version: bound by bytes at ~19 reads of the
+//     row where one would do.
 //   - Loads that do not wait on each other. k, row_len and (DP) C and sigma
 //     are loaded together, and a lane issues all its row loads before the
 //     first use. Rows of at most 512 bytes (V <= 4) load their whole padded
@@ -343,8 +349,108 @@ __device__ __forceinline__ void compress_row_smem(const float* __restrict__ xr,
   finish_row(SmemRow{buf, len, lane, n}, hbits, keep, levels, orow);
 }
 
+// The wide body's block: the sum, max or min of one unsigned value a
+// thread over the whole block (REDUX a warp, then the warps' results in
+// shared memory, read by every thread). Called by every thread of the block.
+enum class BlockOp { kAdd, kMax, kMin };
+
+template <BlockOp kOp>
+__device__ __forceinline__ unsigned block_reduce(unsigned v, unsigned* red) {
+  if constexpr (kOp == BlockOp::kAdd) v = __reduce_add_sync(kFull, v);
+  if constexpr (kOp == BlockOp::kMax) v = __reduce_max_sync(kFull, v);
+  if constexpr (kOp == BlockOp::kMin) v = __reduce_min_sync(kFull, v);
+  const int warps = blockDim.x / kWarp;
+  if (threadIdx.x % kWarp == 0) red[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  unsigned r = red[0];
+  for (int w = 1; w < warps; ++w) {
+    if constexpr (kOp == BlockOp::kAdd) r += red[w];
+    if constexpr (kOp == BlockOp::kMax) r = max(r, red[w]);
+    if constexpr (kOp == BlockOp::kMin) r = min(r, red[w]);
+  }
+  __syncthreads();  // red is reused by the next call
+  return r;
+}
+
+// A wide row's valid prefix as the passes read it: x, or with DP
+// x * coef + (sigma * C) * noise, recomputed at every read in the same
+// rounded operations, so every pass sees the same bits.
+template <bool kDP>
+struct WideRow {
+  const float* __restrict__ x;
+  const float* __restrict__ noise;
+  float coef, noise_scale;
+  __device__ __forceinline__ float at(int j) const {
+    if constexpr (kDP) return __fadd_rn(__fmul_rn(x[j], coef), __fmul_rn(noise_scale, noise[j]));
+    return x[j];
+  }
+};
+
+// The wide body: one block a row of any width, read from device memory at
+// every pass. Thread t reads columns t, t + blockDim.x, ... of the valid
+// prefix; the bisection, the quantize grid and NaN rules are those of
+// finish_row. With DP, warp 0 sums the row's squares in the order of the
+// one-warp bodies (lane l over j = l, l+32, ..., then the butterfly), so
+// the norm has the plain version's bits.
+template <bool kDP>
+__device__ __forceinline__ void compress_row_wide(const float* __restrict__ xr,
+                                                  float* __restrict__ orow,
+                                                  const float* __restrict__ nr, float clip,
+                                                  float sigma, int len, int keep, int n,
+                                                  int levels) {
+  __shared__ unsigned red[kWarpsPerBlock];
+  __shared__ float norm2;
+  const int tid = threadIdx.x, step = blockDim.x;
+  WideRow<kDP> row{xr, nr, 1.0f, 0.0f};
+  if constexpr (kDP) {
+    if (tid < kWarp) {
+      float s = 0.0f;
+      for (int j = tid; j < len; j += kWarp) s = __fadd_rn(s, __fmul_rn(xr[j], xr[j]));
+      s = warp_sum_ordered(s);
+      if (tid == 0) norm2 = s;
+    }
+    __syncthreads();
+    row.coef = nan_min(1.0f, __fdiv_rn(clip, nan_max(__fsqrt_rn(norm2), 1e-12f)));
+    row.noise_scale = __fmul_rn(sigma, clip);
+  }
+  unsigned hbits = 0;
+  for (int j = tid; j < len; j += step) hbits = max(hbits, mag_bits(row.at(j)));
+  float hi = __uint_as_float(block_reduce<BlockOp::kMax>(hbits, red));
+  float lo = 0.0f;
+#pragma unroll 1
+  for (int r = 0; r < kRefine; ++r) {
+    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    unsigned cnt = 0;
+    for (int j = tid; j < len; j += step) cnt += fabsf(row.at(j)) >= mid ? 1u : 0u;
+    if (static_cast<int>(block_reduce<BlockOp::kAdd>(cnt, red)) >= keep) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  float qlo = 0.0f, scale = 1.0f;
+  if (levels > 1) {
+    unsigned kmin = ord_key(CUDART_INF_F), kmax = ord_key(-CUDART_INF_F);
+    for (int j = tid; j < len; j += step) {
+      const float v = row.at(j);
+      if (fabsf(v) >= lo) {
+        kmin = min(kmin, ord_key(v));
+        kmax = max(kmax, ord_key(v));
+      }
+    }
+    qlo = ord_float(block_reduce<BlockOp::kMin>(kmin, red));
+    const float qhi = ord_float(block_reduce<BlockOp::kMax>(kmax, red));
+    scale = __fdiv_rn(nan_max(__fsub_rn(qhi, qlo), 1e-12f), static_cast<float>(levels - 1));
+  }
+  for (int j = tid; j < n; j += step)
+    orow[j] = j < len ? quantized(row.at(j), lo, qlo, scale, levels) : 0.0f;
+}
+
 // One warp a row. V > 0: the register body for n <= 32*V; V = 0: the
-// shared-memory body (dynamic shared memory, n floats a warp).
+// shared-memory body (dynamic shared memory, n floats a warp). V = kWide:
+// one block a row, the wide body.
+constexpr int kWide = -1;
+
 template <int V, bool kDP>
 __device__ __forceinline__ void compress_rows_body(const float* __restrict__ x,
                                                    const int* __restrict__ k,
@@ -357,7 +463,7 @@ __device__ __forceinline__ void compress_rows_body(const float* __restrict__ x,
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * (blockDim.x / kWarp) + warp;
+  const int row = V == kWide ? blockIdx.x : blockIdx.x * (blockDim.x / kWarp) + warp;
   if (row >= rows) return;  // warp-uniform: the reductions below see full warps
   // The row's scalars, loaded together: none waits on another.
   const int keep = k[row];
@@ -369,9 +475,11 @@ __device__ __forceinline__ void compress_rows_body(const float* __restrict__ x,
   if constexpr (V > 0) {
     compress_row_regs<V, kDP>(x + off, out + off, nr, c, s, len, keep, n, levels, lane,
                               smem + static_cast<size_t>(warp) * kWarp * V);
-  } else {
+  } else if constexpr (V == 0) {
     compress_row_smem<kDP>(x + off, out + off, smem + static_cast<size_t>(warp) * n, nr, c, s,
                            len, keep, n, levels, lane);
+  } else {
+    compress_row_wide<kDP>(x + off, out + off, nr, c, s, len, keep, n, levels);
   }
 }
 
@@ -422,7 +530,7 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
       if (e != cudaSuccess) return e;
     }
   }
-  const int blocks = (a.rows + warps - 1) / warps;
+  const int blocks = V == kWide ? a.rows : (a.rows + warps - 1) / warps;
   if (kDP) {
     compress_rows_dp_kernel<V><<<blocks, warps * kWarp, smem, stream>>>(
         a.x, a.k, a.row_len, a.noise, a.clip, a.sigma, a.out, a.rows, a.n, a.levels);
@@ -433,8 +541,8 @@ cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The body for a row width: the fewest values a lane that hold n, or
-// shared memory past 32 a lane.
+// The body for a row width: the fewest values a lane that hold n, shared
+// memory past 32 a lane, one block a row past one block's shared memory.
 template <bool kDP>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.rows <= 0 || a.n <= 0) return cudaErrorInvalidValue;
@@ -444,15 +552,17 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.n <= kWarp * 8) return launch_rows<8, kDP>(a, stream);
   if (a.n <= kWarp * 16) return launch_rows<16, kDP>(a, stream);
   if (a.n <= kWarp * 32) return launch_rows<32, kDP>(a, stream);
-  return launch_rows<0, kDP>(a, stream);
+  if (static_cast<size_t>(a.n) * sizeof(float) <= kMaxSmemBytes)
+    return launch_rows<0, kDP>(a, stream);
+  return launch_rows<kWide, kDP>(a, stream);
 }
 
 }  // namespace
 
 // x, out: [rows, n] fp32 row-major on the device; k, row_len: [rows] int32.
 // Launches on `stream` and does not synchronise. Returns a cudaError_t code:
-// cudaErrorInvalidValue when one row does not fit in a block's shared memory,
-// otherwise cudaGetLastError() after the launch.
+// cudaErrorInvalidValue for rows <= 0 or n <= 0, otherwise
+// cudaGetLastError() after the launch.
 extern "C" int compress_rows_f32(const float* x, const int* k, const int* row_len, float* out,
                                  int rows, int n, int levels, cudaStream_t stream) {
   const Args a{x, k, row_len, nullptr, nullptr, nullptr, out, rows, n, levels};

@@ -1,11 +1,14 @@
 """Synthetic dataset generators shaped like the paper's three datasets.
 
-A numpy copy of the e-health part of ``repro/data/synthetic.py``: the same
-seed gives bit-identical arrays. Class-conditional data with the exact
+A numpy copy of ``repro/data/synthetic.py``: the same seed gives
+bit-identical arrays. Class-conditional data with the exact
 shapes/cardinalities of §VII-A2:
   * OrganAMNIST-like: 28x28 grayscale, 11 classes
   * MIMIC-III-like:   48 timesteps x 76 features, 2 classes
   * ESR-like:         178 features (treated as 178x1 time series), 5 classes
+
+and the LLM-scale synthetic token streams of the ``llm_hybrid`` runner,
+drawn on the host and handed to the run's device.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -61,3 +65,56 @@ def flatten_for_tower(spec: DatasetSpec, X_part: np.ndarray) -> np.ndarray:
     if spec.name == "organamnist":
         return X_part.reshape(X_part.shape[0], -1)
     return X_part
+
+
+# ---------------------------------------------------------------------------
+# LLM-scale synthetic token streams (the llm_hybrid training workload)
+# ---------------------------------------------------------------------------
+
+
+def token_stream(rng: np.random.RandomState, vocab: int, batch: int, seq: int,
+                 drift: int = 17, p_drift: float = 0.7):
+    """Markov-ish synthetic tokens: the next token is correlated with the
+    previous one, so the hybrid model genuinely learns (unlike uniform noise,
+    whose loss floor is log V regardless of training)."""
+    base = rng.randint(0, vocab, (batch, seq + 1))
+    drifted = (base[:, :-1] + rng.randint(0, drift, (batch, seq))) % vocab
+    mask = rng.rand(batch, seq) < p_drift
+    return base[:, :-1], np.where(mask, drifted, base[:, 1:])
+
+
+def llm_batch_fn(cfg, batch: int, seq: int, n_pods: int = 1, seed: int = 0, device="cpu"):
+    """Seeded per-exchange batch sampler for the LLM federated runner.
+
+    Returns ``batch_fn(round_idx, lam)`` producing a fresh {x1, x2, y} dict
+    of tensors on ``device`` with leading [Λ, G, ...] axes — one resampled
+    mini-batch per exchange interval per pod group, family-aware (text
+    splits the sequence between the hospital and device towers; vlm/audio
+    feed the modality frontend to the hospital side). The host draws are
+    the reference's, bit for bit.
+    """
+    rng = np.random.RandomState(seed)
+    modality = cfg.family in ("vlm", "audio")
+    enc = 8 if cfg.family == "vlm" else getattr(cfg, "encoder_seq", 0)
+
+    def sample_one():
+        if modality:
+            x1 = rng.randn(batch, enc, cfg.d_model).astype(np.float32)
+            x2_in, y = token_stream(rng, cfg.vocab_size, batch, seq)
+            return x1, x2_in, y
+        inp, tgt = token_stream(rng, cfg.vocab_size, batch, seq)
+        s1 = seq // 2
+        return inp[:, :s1], inp[:, s1:], tgt
+
+    def batch_fn(round_idx: int, lam: int):
+        del round_idx  # the shared rng advances monotonically across calls
+        draws = [[sample_one() for _ in range(n_pods)] for _ in range(lam)]
+        stack = lambda i: np.stack([[d[i] for d in pod] for pod in draws])
+        as_t = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(device)
+        return {
+            "x1": as_t(stack(0), np.float32 if modality else np.int32),
+            "x2": as_t(stack(1), np.int32),
+            "y": as_t(stack(2), np.int32),
+        }
+
+    return batch_fn

@@ -14,10 +14,15 @@ row; both kernels are bit-identical to the plain version
 the plain version, a CUDA tensor to the kernel. There is no switch and no
 fallback: what the kernel does not take raises.
 
-``compress_pytree`` stacks every leaf of a message tree into one padded
-row matrix with a per-row valid length, so a whole exchange message
-(θ0 + ζ1 + ζ2) costs one launch. Its DP noise rows are drawn on the
-matrix's device from the caller's generator, or handed in.
+``compress_pytree`` groups the rows of a message tree by the kernel body
+they need (``row_groups``): every row of at most ``NARROW_WIDTH`` floats in
+one matrix, padded to the widest of them, with a per-row valid length;
+each wider width in a matrix of its own, unpadded. Each group is one
+launch: a paper model's whole exchange message (θ0 + ζ1 + ζ2, rows of at
+most 128 floats) is one, an LLM's message one per width past
+``NARROW_WIDTH``, and no matrix is much larger than the message. The DP
+noise rows are drawn on the device from the caller's generator, group by
+group, or handed in.
 """
 from __future__ import annotations
 
@@ -32,8 +37,11 @@ from repro_torch.core.compression import compress_rows_ref, dp_scalar
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.build import load
 
-# One row lives in one block's shared memory (227 KB on Hopper).
-MAX_ROW_BYTES = 232448
+# Rows of at most this many floats share one matrix (the register bodies);
+# each wider width gets one of its own.
+NARROW_WIDTH = 1024
+# The kernels index a row's columns with int, stepping by up to a block.
+MAX_ROW_WIDTH = 2 ** 31 - 1 - 256
 
 
 def _per_row(v, rows: int, device) -> torch.Tensor:
@@ -81,9 +89,8 @@ def fused_compress(
         clip = dp_scalar("dp_clip", dp_clip, x.device).contiguous()
         sigma = dp_scalar("dp_sigma", dp_sigma, x.device).contiguous()
     rows, n = x.shape
-    if n * 4 > MAX_ROW_BYTES:
-        raise ValueError(f"a row of {n} floats does not fit in one block's shared memory "
-                         f"({MAX_ROW_BYTES} bytes)")
+    if n > MAX_ROW_WIDTH or rows >= 2 ** 31:
+        raise ValueError(f"a [{rows}, {n}] matrix is past the kernels' int indexing")
     k_arr = _per_row(k, rows, x.device)
     len_arr = _per_row(n if row_len is None else row_len, rows, x.device)
     out = torch.empty_like(x)
@@ -124,12 +131,12 @@ def compress_rows(
 
 
 def stack_rows(leaves, k_frac: float):
-    """The message leaves as one fp32 row matrix, each leaf viewed as rows of
+    """Message leaves as one fp32 row matrix, each leaf viewed as rows of
     its trailing axis and padded to the widest: (matrix, per-row k, per-row
     valid length, rows per leaf). Per-leaf k is ``max(1, round(k_frac *
     width))`` when 0 < k_frac < 1, else the full width."""
     do_topk = 0.0 < k_frac < 1.0
-    widths = [int(leaf.shape[-1]) if leaf.dim() else 1 for leaf in leaves]
+    widths = [leaf_width(leaf) for leaf in leaves]
     n_max = max(widths)
     mats = []
     for leaf, n in zip(leaves, widths):
@@ -143,35 +150,66 @@ def stack_rows(leaves, k_frac: float):
     return torch.cat(mats, dim=0), k_rows, len_rows, counts
 
 
+def leaf_width(leaf) -> int:
+    """The width of a leaf's rows: its trailing axis (1 for a scalar)."""
+    return int(leaf.shape[-1]) if leaf.dim() else 1
+
+
+def row_groups(leaves):
+    """The message's leaves grouped by the kernel body their rows need, as
+    lists of leaf indices: the leaves of width <= ``NARROW_WIDTH`` in one
+    group (padded to the widest of them by ``stack_rows``), then one group
+    for each wider width, in increasing width. No leaf is padded past
+    ``NARROW_WIDTH``."""
+    widths = [leaf_width(leaf) for leaf in leaves]
+    narrow = [i for i, n in enumerate(widths) if n <= NARROW_WIDTH]
+    wide = [[i for i, n in enumerate(widths) if n == w]
+            for w in sorted({n for n in widths if n > NARROW_WIDTH})]
+    return ([narrow] if narrow else []) + wide
+
+
 def compress_pytree(tree, k_frac: float, levels: int = 0, dp_clip=None, dp_sigma=None,
-                    dp_noise: Optional[torch.Tensor] = None,
-                    dp_generator: Optional[torch.Generator] = None):
-    """Compress every leaf of a message tree in ONE batched row-matrix call.
+                    dp_noise=None, dp_generator: Optional[torch.Generator] = None):
+    """Compress every leaf of a message tree, one launch per row group.
 
-    The leaves are stacked by ``stack_rows``; the per-row valid length keeps
-    the result identical to compressing each leaf separately.
+    The leaves are grouped by ``row_groups`` and each group stacked by
+    ``stack_rows``; the per-row valid length keeps the result identical to
+    compressing each leaf separately. Groups are stacked and compressed one
+    after the other, so one group's input matrix lives at a time.
 
-    DP: with ``dp_noise`` (standard normals shaped like the stacked matrix)
+    DP: with ``dp_noise`` (standard normals shaped like the stacked group:
+    one tensor for a one-group message, else a sequence of one per group)
     or ``dp_generator`` (a generator on the tree's device, from which that
-    noise is drawn with ``torch.randn``), every row goes through the fused
-    clip + noise stage with clip ``dp_clip`` and multiplier ``dp_sigma``.
+    noise is drawn with ``torch.randn``, group by group), every row goes
+    through the fused clip + noise stage with clip ``dp_clip`` and
+    multiplier ``dp_sigma``.
     """
     dp = dp_noise is not None or dp_generator is not None
     if not (0.0 < k_frac < 1.0) and not (levels and levels > 1) and not dp:
         return tree
     leaves, treedef = tree_flatten(tree)
-    mat, k_rows, len_rows, counts = stack_rows(leaves, k_frac)
-    if dp and dp_noise is None:
-        dp_noise = torch.randn(mat.shape, generator=dp_generator, device=mat.device)
-    elif dp:
-        if dp_noise.shape != mat.shape:
-            raise ValueError(f"dp_noise {tuple(dp_noise.shape)} does not match the stacked "
-                             f"message {tuple(mat.shape)}")
-        dp_noise = dp_noise.to(device=mat.device, dtype=torch.float32).contiguous()
-    out = compress_rows(mat, k_rows, levels, len_rows, dp_clip, dp_sigma, dp_noise)
-    new_leaves, off = [], 0
-    for leaf, r in zip(leaves, counts):
-        n = int(leaf.shape[-1]) if leaf.dim() else 1
-        new_leaves.append(out[off:off + r, :n].reshape(leaf.shape).to(leaf.dtype))
-        off += r
+    groups = row_groups(leaves)
+    if dp_noise is not None:
+        dp_noise = [dp_noise] if isinstance(dp_noise, torch.Tensor) else list(dp_noise)
+        if len(dp_noise) != len(groups):
+            raise ValueError(f"dp_noise holds {len(dp_noise)} matrices for the message's "
+                             f"{len(groups)} row groups")
+    new_leaves = [None] * len(leaves)
+    for gi, members in enumerate(groups):
+        mat, k_rows, len_rows, counts = stack_rows([leaves[i] for i in members], k_frac)
+        noise = None
+        if dp_noise is not None:
+            noise = dp_noise[gi].to(device=mat.device, dtype=torch.float32).contiguous()
+            if noise.shape != mat.shape:
+                raise ValueError(f"dp_noise {tuple(noise.shape)} does not match row group {gi} "
+                                 f"{tuple(mat.shape)}")
+        elif dp:
+            noise = torch.randn(mat.shape, generator=dp_generator, device=mat.device)
+        out = compress_rows(mat, k_rows, levels, len_rows, dp_clip, dp_sigma, noise)
+        del mat, noise
+        off = 0
+        for i, r in zip(members, counts):
+            leaf = leaves[i]
+            new_leaves[i] = out[off:off + r, :leaf_width(leaf)].reshape(leaf.shape).to(leaf.dtype)
+            off += r
     return tree_unflatten(treedef, new_leaves)

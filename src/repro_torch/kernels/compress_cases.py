@@ -10,9 +10,11 @@ from __future__ import annotations
 import torch
 
 # Row widths of the edge-case matrix: every register bucket of the CUDA
-# kernel (1 to 32 values a lane), non-multiples of 32, and the
-# shared-memory body past 1024.
-EDGE_WIDTHS = (1, 31, 33, 64, 100, 128, 255, 300, 512, 1000, 1024, 1025, 4000)
+# kernel (1 to 32 values a lane), non-multiples of 32, the shared-memory
+# body past 1024 up to its last width (58112 floats, one block's shared
+# memory), and the wide body past it (an LLM head's vocabulary axis).
+EDGE_WIDTHS = (1, 31, 33, 64, 100, 128, 255, 300, 512, 1000, 1024, 1025, 4000, 58112,
+               58113, 65536, 262144)
 
 
 def edge_case_rows(n: int, seed: int = 0):

@@ -24,6 +24,14 @@ of ``wall_s`` before steps/s and the busy share are computed
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train --population semi_async \
       --compression-k 0.25 --quantization 128 --rounds 10 [--fault-nan 0.05 ...]
+
+With ``--arch`` each timed call runs ``--rounds`` fixed-cadence rounds of the
+LLM-scale federation (``launch/steps.py``, P steps a round, ``--pods``,
+``--compression-k``, ``--quantization``) from the model the previous call
+left, on a fresh token stream every exchange interval:
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_train --arch gemma3-1b \
+      --compression-k 0.25 --quantization 128 --rounds 2
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from repro_torch.common.backend import resolve_device
 from repro_torch.core.baselines import make_runner
 from repro_torch.core.hsgd import init_state
 from repro_torch.launch import train as T
+from repro_torch.launch.steps import LLMRoundRunner
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -76,6 +85,43 @@ def port_kernel_times(intervals):
     return out
 
 
+def _round_runner(args, device, sim_seconds):
+    """(initial state, run_rounds(state, rounds) -> (state, losses)) of the
+    path the flags pick; a population run writes its simulated seconds
+    into ``sim_seconds["last"]``."""
+    if args.arch:
+        if args.adaptive:
+            raise SystemExit("profile_train --arch times fixed-cadence rounds; drop --adaptive")
+        _, model, params, batch_fn = T.build_llm(args, device)
+        llm_round = LLMRoundRunner(model, n_pods=args.pods).round_fn(
+            args.p, args.q, args.compression_k, args.quantization, collect_stats=False)
+
+        def run_llm_rounds(params, rounds):
+            losses = [torch.zeros(0, device=device)]
+            for r in range(rounds):
+                params, loss = llm_round(params, batch_fn(r, args.p // args.q), args.lr)
+                losses.append(loss)
+            return params, torch.cat(losses)
+
+        return params, run_llm_rounds
+    model, fed, train, data, w, _ = T.setup_ehealth(args, device)
+    if args.population:
+        def run_population_rounds(state, rounds):
+            res = T.population_rounds(args, model, fed, train, data, rounds)
+            sim_seconds["last"] = res["sim_seconds"]
+            return state, res["losses"]
+
+        return None, run_population_rounds
+    runner, eff_fed = make_runner(args.algorithm, model, fed, train)
+
+    def run_train_rounds(state, rounds):
+        state, losses, _, _ = T.train_rounds(args, model, fed, runner, state, data, w, rounds)
+        return state, losses
+
+    return init_state(torch.Generator().manual_seed(args.seed), model, eff_fed, data), \
+        run_train_rounds
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--trace", default=None)
@@ -84,24 +130,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     if device.type != "cuda":
         raise SystemExit("profile_train measures the card: run it with --device cuda")
-    model, fed, train, data, w, _ = T.setup_ehealth(args, device)
     sim_seconds = {}
-    if args.population:
-        state = None
-
-        def run_rounds(state, rounds):
-            res = T.population_rounds(args, model, fed, train, data, rounds)
-            sim_seconds["last"] = res["sim_seconds"]
-            return state, res["losses"]
-    else:
-        runner, eff_fed = make_runner(args.algorithm, model, fed, train)
-        state = init_state(torch.Generator().manual_seed(args.seed), model, eff_fed, data)
-
-        def run_rounds(state, rounds):
-            state, losses, _, _ = T.train_rounds(args, model, fed, runner, state, data, w,
-                                                 rounds)
-            return state, losses
-
+    state, run_rounds = _round_runner(args, device, sim_seconds)
     state, _ = run_rounds(state, 1)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
 
@@ -137,6 +167,8 @@ def main(argv=None):
     n_kernels = sum(1 for cat, *_ in intervals if cat == "kernel")
     out = {
         "device": torch.cuda.get_device_name(0),
+        "arch": args.arch, "pods": args.pods,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "algorithm": args.algorithm, "groups": args.groups, "devices": args.devices,
         "adaptive": args.adaptive, "dp_clip": args.dp_clip, "dp_sigma": args.dp_sigma,
         "secure_agg": args.secure_agg,

@@ -13,7 +13,13 @@ adaptive loop (``--adaptive``, with ``--byte-budget-mb``, ``--target-bound``,
 (``--population sync|semi_async|adaptive`` over a simulated device fleet),
 its fault-tolerant variant (the ``--fault-*`` flags, ``--preempt-round``,
 ``--no-defense``, ``--ckpt-every``, ``--resume``) and ``--checkpoint``.
-``--arch`` and ``--smoke`` (the LLM path) raise ``SystemExit``.
+
+LLM-scale federation: --arch <name> [--smoke] trains the ``llm_hybrid``
+decomposition of an assigned architecture on synthetic token streams
+(``launch/steps.py``): fixed-cadence rounds (--steps, --p, --q, --pods,
+--compression-k, --quantization) or the §VI loop (--adaptive). The dense
+family runs (gemma3-1b, stablelm-1.6b); other --arch values exit with "not
+ported yet". Without --smoke the widths are the published ones.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --model paper-cnn \
@@ -26,6 +32,8 @@ Examples:
       --compression-k 0.25 --quantization 128 --rounds 10
   PYTHONPATH=src python -m repro_torch.launch.train --population sync \
       --fault-nan 0.05 --fault-dropout 0.1 --ckpt-every 2 --checkpoint ck
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b --steps 20 \
+      --compression-k 0.25 --quantization 128 --pods 2
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import torch
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.common.backend import resolve_device
-from repro_torch.common.config import FederationConfig, TrainConfig
+from repro_torch.common.config import FederationConfig, TrainConfig, get_config, list_configs
 from repro_torch.core import metrics as MET
 from repro_torch.core.baselines import make_runner, merge_groups_for_tdcd
 from repro_torch.core.controller import (
@@ -58,11 +66,12 @@ from repro_torch.core.population import (
     run_population_resilient,
 )
 from repro_torch.data.partition import hybrid_partition
-from repro_torch.data.synthetic import DATASETS, flatten_for_tower, make_dataset, vertical_split
-from repro_torch.models.split_model import cnn_hybrid, lstm_hybrid
+from repro_torch.data.synthetic import (DATASETS, flatten_for_tower, llm_batch_fn, make_dataset,
+                                        vertical_split)
+from repro_torch.launch.steps import (AdaptiveLLMRunner, LLMRoundRunner, global_llm_params,
+                                      init_llm_params)
+from repro_torch.models.split_model import cnn_hybrid, llm_hybrid, lstm_hybrid
 
-# Flags of the reference CLI whose path (LLM-scale training) comes later.
-NOT_PORTED = ("arch", "smoke")
 FAULT_RATES = ("fault_dropout", "fault_nan", "fault_outlier", "fault_msg_corrupt",
                "fault_msg_loss", "fault_msg_dup", "fault_latency")
 
@@ -321,6 +330,82 @@ def run_population_cli(args) -> Tuple[dict, dict]:
     return out, res
 
 
+def build_llm(args, device):
+    """(config, model, pod-stacked initial params, batch_fn) of an --arch
+    run: the weights drawn from ``--seed`` on a generator of ``device``
+    (CPU draws are the same whatever the run's device; card draws differ)."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    model = llm_hybrid(cfg, n_tower=1, remat=False)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    params = init_llm_params(generator, model, n_pods=args.pods)
+    batch_fn = llm_batch_fn(cfg, args.batch, args.seq, n_pods=args.pods, seed=args.seed,
+                            device=device)
+    return cfg, model, params, batch_fn
+
+
+def run_llm(args) -> Tuple[dict, np.ndarray]:
+    """LLM-scale federation on synthetic token streams: fixed-cadence rounds
+    (one executor per (P, Q, k, b) bucket, a fresh stream every exchange
+    interval) or the §VI adaptive loop. Prints the reference's report (with
+    the peak device memory of the training, the draw of the weights left
+    out) and returns it with the per-step losses."""
+    device = resolve_device(args.device)
+    _, model, params, batch_fn = build_llm(args, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    history = None
+    if args.adaptive:
+        acfg = AdaptiveConfig(
+            total_steps=args.steps,
+            target_bound=args.target_bound,
+            byte_budget=args.byte_budget_mb * 1e6,
+            max_interval=args.max_interval,
+            eta_max=max(args.lr * 10, 0.05),
+            ladder=ladder_from(args.compression_k, args.quantization),
+        )
+        ad = AdaptiveLLMRunner(model, acfg, n_pods=args.pods, learning_rate=args.lr)
+        params, losses, history = ad.run(params, batch_fn)
+        runner = ad.runner
+        for h in history:
+            print(f"[adaptive] round {h['round']:3d}: P=Q={h['P']:3d} "
+                  f"eta={h['eta']:.4g} rung={h['rung']} Γ={h['gamma']:.3g} "
+                  f"bytes={h['bytes_total'] / 1e6:.2f}MB loss={h['loss_last']:.4f}")
+    else:
+        steps = max(1, args.steps // args.p) * args.p  # whole rounds
+        if steps != args.steps:
+            print(f"# rounding --steps {args.steps} -> {steps} (whole P={args.p} rounds)")
+        runner = LLMRoundRunner(model, n_pods=args.pods)
+        params, losses = runner.run_fixed(
+            params, batch_fn, steps=steps, P=args.p, Q=args.q, lr=args.lr,
+            compression_k=args.compression_k, quant_levels=args.quantization)
+        for t in range(0, len(losses), max(1, len(losses) // 10)):
+            print(f"step {t:4d} loss {float(losses[t]):.4f}")
+    wall = time.time() - t0
+    out = {"arch": args.arch, "pods": args.pods,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "steps": int(len(losses)), "wall_s": round(wall, 2)}
+    if history is not None:
+        out["adaptive_rounds"] = len(history)
+        out["adaptive_bytes_total"] = history[-1]["bytes_total"]
+        out["adaptive_final_PQ"] = history[-1]["P"]
+    out["executors_compiled"] = len(runner._round_cache)
+    if device.type == "cuda":
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    print(json.dumps(out))
+    if args.checkpoint:
+        # flat {θ0, θ1, θ2} global model (pod mean), the reference's format
+        save_checkpoint(args.checkpoint, global_llm_params(params), step=len(losses))
+        print(f"checkpoint -> {args.checkpoint}")
+    return out, losses
+
+
+def llm_arch_ported(name: str) -> bool:
+    """An --arch this package trains: a registered config of the dense
+    family."""
+    return name in list_configs() and get_config(name).family == "dense"
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
@@ -435,17 +520,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = build_parser()
     args = ap.parse_args(argv)
     validate_args(ap, args)
-    used = [f"--{name.replace('_', '-')}" for name in NOT_PORTED
-            if getattr(args, name) != ap.get_default(name)]
-    if used:
-        raise SystemExit(f"{', '.join(used)}: not ported yet")
+    if args.arch and not llm_arch_ported(args.arch):
+        raise SystemExit(f"--arch {args.arch}: not ported yet")
     if not args.model:
         args.model = "paper-cnn"
     return args
 
 
 def main(argv=None):
-    return run_ehealth(parse_args(argv))[0]
+    args = parse_args(argv)
+    if args.arch:
+        return run_llm(args)[0]
+    return run_ehealth(args)[0]
 
 
 if __name__ == "__main__":

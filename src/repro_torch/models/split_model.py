@@ -5,8 +5,14 @@ A ``HybridModel`` exposes exactly the objects Algorithm 1 manipulates:
   h2(θ2, X2) -> ζ2      device tower
   loss(θ0, ζ1, ζ2, y)   combined model + loss
 
-This slice holds the paper's own e-health models (``cnn_hybrid``,
-``lstm_hybrid``); ``llm_hybrid`` comes with the LLM slice.
+Instantiations:
+  * cnn_hybrid / lstm_hybrid — the paper's own e-health models, with the
+    exact vertical feature split of §VII-A.
+  * llm_hybrid — the assigned LLM-scale architectures, text arm (the dense
+    family): the hospital and the device each hold a segment of the
+    sequence, their towers are ``n_tower`` blocks at full width, and the
+    combined model is the architecture's backbone + an untied head. The
+    audio and VLM arms are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,10 +22,12 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from repro_torch.common.config import ModelConfig
 from repro_torch.common.pytree import tree_map
 from repro_torch.models import cnn as C
 from repro_torch.models import layers as L
 from repro_torch.models import lstm as R
+from repro_torch.models import transformer as T
 
 
 @dataclass(frozen=True)
@@ -124,6 +132,89 @@ def lstm_hybrid(
         specs2=R.tower_specs(dev_features, d_hidden, embed_dim),
         h1=R.tower_forward,
         h2=R.tower_forward,
+        loss=loss,
+        predict=predict,
+    )
+
+
+# ---------------------------------------------------------------------------
+# LLM-scale hybrid (assigned architectures)
+# ---------------------------------------------------------------------------
+
+
+def _tower_cfg(cfg: ModelConfig, n_tower: int) -> ModelConfig:
+    """Family-consistent tower blocks at full width, shallow depth."""
+    kw = dict(num_layers=n_tower, first_dense_layers=0, num_experts=0,
+              experts_per_token=0, num_shared_experts=0)
+    if cfg.family in ("ssm", "hybrid"):
+        return cfg.replace(family="ssm", **kw)
+    if cfg.d_ff == 0:  # attention-free cfg needs an ff for dense tower blocks
+        kw["d_ff"] = 4 * cfg.d_model
+    return cfg.replace(family="dense", attention=cfg.attention, hybrid_attn_every=0, **kw)
+
+
+def _tower_stack_specs(cfg: ModelConfig, n_tower: int, with_embed: bool):
+    tcfg = _tower_cfg(cfg, n_tower)
+    kind = "mamba" if tcfg.family == "ssm" else "attn_mlp"
+    s = {"layers": T.stack_specs(tcfg, n_tower, kind), "norm": L.norm_specs(cfg.norm, cfg.d_model)}
+    if with_embed:
+        s["embed"] = L.embed_specs(cfg.vocab_size, cfg.d_model)
+    return s, tcfg
+
+
+def _tower_forward(tcfg: ModelConfig, params, x_or_tokens, remat=True):
+    if "embed" in params:
+        x = L.embed(params["embed"], x_or_tokens)
+        # the reference's sqrt(float32(d)), rounded to x's dtype
+        scale = torch.sqrt(torch.tensor(float(tcfg.d_model), dtype=torch.float32))
+        x = x * float(scale.to(x.dtype))
+    else:
+        x = x_or_tokens
+    x, _ = T.backbone_forward(tcfg, {"layers": params["layers"]}, x, remat=remat)
+    return L.apply_norm(tcfg.norm, params["norm"], x)
+
+
+def llm_hybrid(cfg: ModelConfig, n_tower: int = 2, remat: bool = True) -> HybridModel:
+    """Wrap an assigned architecture into the paper's hybrid decomposition:
+    the text arm (the hospital and the device towers each embed a segment
+    of the token sequence). The audio and VLM arms raise."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"the {cfg.family!r} arm of llm_hybrid is not ported yet")
+    s1, tcfg1 = _tower_stack_specs(cfg, n_tower, with_embed=True)
+    s2, tcfg2 = _tower_stack_specs(cfg, n_tower, with_embed=True)
+
+    specs0 = T.model_specs(cfg)
+    del specs0["embed"]  # combined model consumes ζ, not tokens
+    specs0["head"] = L.dense_specs(cfg.d_model, cfg.vocab_size, (None, "vocab"), scale=0.02)
+
+    def h1(t1, x1):
+        return _tower_forward(tcfg1, t1, x1, remat)
+
+    def h2(t2, x2):
+        return _tower_forward(tcfg2, t2, x2, remat)
+
+    def hidden_fn(t0, z1, z2):
+        x = torch.cat([z1.to(z2.dtype), z2], dim=1)
+        x, _ = T.backbone_forward(cfg, t0, x, remat=remat)
+        return L.apply_norm(cfg.norm, t0["final_norm"], x)
+
+    def predict(t0, z1, z2):
+        return L.dense(t0["head"], hidden_fn(t0, z1, z2))
+
+    def loss(t0, z1, z2, y):
+        # labels cover the token region (hospital + device segments)
+        hidden = hidden_fn(t0, z1, z2)[:, -y.shape[1]:]
+        # fused chunked head + cross-entropy: the full logits never materialize
+        head_cfg = cfg.replace(tie_embeddings=False)
+        return T.chunked_lm_head_loss(head_cfg, t0, hidden, y, remat)
+
+    return HybridModel(
+        name=f"hybrid_{cfg.name}",
+        specs0=specs0,
+        specs1=s1,
+        specs2=s2,
+        h1=h1,
+        h2=h2,
         loss=loss,
         predict=predict,
     )

@@ -11,6 +11,11 @@ per-layer views (the reference donates them): ``decode_step`` returns the
 cache tensors it was given, updated — the dense family's KV caches under
 ``"kv"``, the ssm family's (conv, h) states under ``"ssm"``. The MoE,
 hybrid, audio and VLM families raise "not ported yet".
+
+The train path (``forward``, ``backbone_forward``, ``lm_loss``) runs the
+dense family under autograd; ``remat`` wraps each layer, and each chunk of
+the fused head + cross-entropy, in ``torch.utils.checkpoint`` where the
+reference has ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.pytree import tree_flatten, tree_map, tree_unflatten
@@ -89,6 +95,33 @@ def mamba_block(params, x, cfg, state=None):
 def layer_params(stacked, i: int):
     """Layer ``i``'s slice (views) of a stacked parameter tree."""
     return tree_map(lambda a: a[i], stacked)
+
+
+def _remat(f, enabled: bool):
+    """``f``, recomputed in the backward pass instead of saving its
+    activations when ``enabled``."""
+    if not enabled:
+        return f
+    return lambda *args: checkpoint(f, *args, use_reentrant=False)
+
+
+def dense_stack_forward(params, x, positions, cfg, windows, remat=True, positions_3d=None):
+    """The reference's ``lax.scan`` over a stack of attention + MLP layers as
+    a loop over its slices; ``windows`` holds each layer's window int."""
+
+    def body(xc, p, win):
+        y, _ = attn_mlp_block(p, xc, positions, cfg, win, positions_3d=positions_3d)
+        return y
+
+    body = _remat(body, remat)
+    # one unbind a stacked leaf: its backward stacks the layers' gradients
+    # once, where indexing each layer would add a zero-filled full-stack
+    # gradient a layer
+    leaves, treedef = tree_flatten(params)
+    per_layer = [torch.unbind(x, 0) for x in leaves]
+    for i, win in enumerate(windows):
+        x = body(x, tree_unflatten(treedef, [ls[i] for ls in per_layer]), win)
+    return x
 
 
 def dense_stack_decode(params, x, positions, cfg, windows, caches, cache_index,
@@ -164,10 +197,96 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cpu", dtype=torch.float32)
     return tree_unflatten(treedef, out)
 
 
+def _embed_scale(cfg: ModelConfig, dtype) -> float:
+    """sqrt(d_model) rounded to ``dtype``, as the reference's
+    ``jnp.asarray(np.sqrt(d), x.dtype)``, as a Python scalar (a tensor built
+    on the card would stall the stream on its host copy)."""
+    return float(torch.tensor(np.sqrt(cfg.d_model), dtype=dtype))
+
+
+def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None, remat: bool = True,
+            force_window: bool = False):
+    """Training/prefill forward -> (hidden [B, S, D], aux_loss): the dense
+    family (the audio and VLM front ends are not ported yet)."""
+    if cfg.family in ("vlm", "audio") or extra_embeds is not None:
+        raise NotImplementedError(f"the {cfg.family!r} family's front end is not ported yet")
+    x = L.embed(params["embed"], tokens)
+    x = x * _embed_scale(cfg, x.dtype)
+    x, aux = backbone_forward(cfg, params, x, remat=remat, force_window=force_window)
+    return L.apply_norm(cfg.norm, params["final_norm"], x), aux
+
+
+def backbone_forward(cfg: ModelConfig, params, x, *, remat=True, force_window=False,
+                     positions_3d=None):
+    """Run the layer stack over already-embedded inputs x [B, S, D] ->
+    (x, aux). The dense family; the others raise "not ported yet"."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family!r} family's train path is not ported yet")
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    windows = layer_windows(cfg, cfg.num_layers, force_window)
+    x = dense_stack_forward(params["layers"], x, positions, cfg, windows, remat, positions_3d)
+    return x, torch.zeros((), device=x.device)
+
+
 def logits_from_hidden(cfg: ModelConfig, params, hidden):
     if cfg.tie_embeddings:
         return L.unembed(params["embed"], hidden)
     return L.dense(params["head"], hidden)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits, labels, z_loss: float = 0.0):
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss
+
+
+CE_CHUNK = 512
+
+
+def chunked_lm_head_loss(cfg: ModelConfig, params, hidden, labels, remat=True):
+    """Fused head-matmul + cross-entropy over sequence chunks.
+
+    The full [B, S, V] logits never materialize: each chunk computes a
+    [B, CE_CHUNK, V] slab and reduces it to a scalar, recomputed in the
+    backward pass under ``remat``. Padding labels are -1: they read the
+    logit of token 0 and are masked out of the sum, which is divided by
+    the unpadded B * S.
+    """
+    B, S, D = hidden.shape
+    chunk = min(CE_CHUNK, S)
+    pad = (-S) % chunk
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+
+    def body(hc, yc):
+        logits = logits_from_hidden(cfg, params, hc).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, torch.clamp_min(yc, 0).long()[..., None])[..., 0]
+        valid = (yc >= 0).float()
+        return torch.sum((lse - ll) * valid)
+
+    body = _remat(body, remat)
+    total = torch.zeros((), device=hidden.device)
+    for c in range(0, hidden.shape[1], chunk):
+        total = total + body(hidden[:, c:c + chunk], labels[:, c:c + chunk])
+    return total / (B * S)
+
+
+def lm_loss(cfg: ModelConfig, params, batch, remat=True, aux_weight=0.01, force_window=False):
+    hidden, aux = forward(cfg, params, batch["tokens"], extra_embeds=batch.get("extra_embeds"),
+                          remat=remat, force_window=force_window)
+    return chunked_lm_head_loss(cfg, params, hidden, batch["labels"], remat) + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------
@@ -232,10 +351,7 @@ def decode_hidden(cfg: ModelConfig, params, tokens, caches, index, force_window=
     _require_ported(cfg)
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens)
-    # the reference's jnp.asarray(np.sqrt(d), x.dtype): the fp32-rounded
-    # factor, as a Python scalar (a tensor built on the card would stall
-    # the stream on its host copy)
-    x = x * float(torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype))
+    x = x * _embed_scale(cfg, x.dtype)
     if cfg.family == "ssm":
         x, new_ssm = mamba_stack_decode(params["layers"], x, cfg, caches["ssm"])
         new_caches = {"ssm": new_ssm}

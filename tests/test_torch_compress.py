@@ -53,9 +53,16 @@ def _normal(seed, shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
+# threads of the wide body's block (one block a row)
+WIDE_BLOCK = 256
+
+
 def _bucket(n):
     """The kernel's body for a row width: V values a lane (the fewest of 1,
-    2, 4, ..., 32 that hold n), or 0 for the shared-memory body past 1024."""
+    2, 4, ..., 32 that hold n), 0 for the shared-memory body past 1024, or
+    -1 for the wide body past 58112 floats (one block's shared memory)."""
+    if n * 4 > 232448:
+        return -1
     return next((v for v in (1, 2, 4, 8, 16, 32) if n <= 32 * v), 0)
 
 
@@ -65,12 +72,19 @@ def _emulated_threshold(x, k, row_len):
     lane, loaded whole (padding included) when the row is at most 512
     bytes, then NaN from row_len on and narrowed to the fewest W in
     {1, 2, 4, ..., V} slots that hold the valid prefix; in the shared-memory
-    body ceil(row_len/32) slots, NaN past row_len. hi is the unsigned max of
-    the bit patterns bits & 0x7fffffff over the valid columns; each of the
-    16 steps counts |x| >= mid per lane, sums the 32 lane counts as one
-    uint32 (__reduce_add_sync) and moves lo or hi. Returns the threshold lo."""
+    body ceil(row_len/32) slots, NaN past row_len; in the wide body thread t
+    of a 256-thread block holds columns t + 256*i of the valid prefix. hi is
+    the unsigned max of the bit patterns bits & 0x7fffffff over the valid
+    columns; each of the 16 steps counts |x| >= mid per lane (thread), sums
+    the counts as one uint32 (__reduce_add_sync, then across the block's
+    warps) and moves lo or hi. Returns the threshold lo."""
     n, V = x.shape[0], _bucket(x.shape[0])
-    if V:
+    if V < 0:
+        steps = np.arange(-(-row_len // WIDE_BLOCK))
+        cols = np.arange(WIDE_BLOCK)[:, None] + WIDE_BLOCK * steps[None, :]
+        lanes = np.full(cols.shape, np.nan, np.float32)
+        lanes[cols < row_len] = x[cols[cols < row_len]]
+    elif V:
         W = next(w for w in (1, 2, 4, 8, 16, 32) if w >= V or row_len <= 32 * w)
         cols = np.arange(32)[:, None] + 32 * np.arange(V)[None, :]
         whole = V * 32 * 4 <= 512
@@ -118,12 +132,13 @@ def _check_emulation(x, k, row_len):
     assert torch.equal(torch.from_numpy(np.where(kept, x, np.float32(0.0))), plain)
 
 
-@pytest.mark.parametrize("V", [0, 1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("V", [-1, 0, 1, 2, 4, 8, 16, 32])
 def test_lookahead_emulation_matches_serial_on_edge_rows(V):
     """The kernel's bisection (look-ahead depth 1: one mid and one REDUX
     count a step) and unsigned-pattern max, emulated in the layout of the
-    body with V values a lane (0: the shared-memory body), against the
-    serial bisection on every edge-case row of the widths that body takes."""
+    body with V values a lane (0: the shared-memory body, -1: the wide
+    body), against the serial bisection on every edge-case row of the widths
+    that body takes."""
     widths = [n for n in EDGE_WIDTHS if _bucket(n) == V]
     assert widths
     for n in widths:

@@ -152,17 +152,29 @@ def test_default_device_is_cuda_and_raises_without_it():
         T.run_ehealth(T.parse_args(TINY))
 
 
-@pytest.mark.parametrize("flag", [["--arch", "gemma3-1b"], ["--smoke"],
-                                  ["--arch", "zamba2-2.7b"], ["--arch", "gemma3-1b", "--smoke"],
-                                  ["--population", "sync", "--arch", "gemma3-1b"],
-                                  ["--fault-nan", "0.1", "--smoke"],
-                                  ["--checkpoint", "ckpt", "--arch", "stablelm-1.6b"]])
+@pytest.mark.parametrize("flag", [["--arch", "falcon-mamba-7b"], ["--arch", "paper-cnn"],
+                                  ["--arch", "zamba2-2.7b"], ["--arch", "falcon-mamba-7b", "--smoke"],
+                                  ["--population", "sync", "--arch", "zamba2-2.7b"],
+                                  ["--fault-nan", "0.1", "--smoke", "--arch", "deepseek-v3-671b"],
+                                  ["--checkpoint", "ckpt", "--arch", "whisper-medium"]])
 def test_unported_flags_refuse(flag):
-    """Only the LLM path's flags (--arch, --smoke) are still unported; the
-    population, fault and checkpoint flags run (tests/test_torch_faults.py,
+    """Only --arch values outside the dense family are still unported; the
+    dense --arch path runs (tests/test_torch_llm.py), as do the population,
+    fault and checkpoint flags (tests/test_torch_faults.py,
     tests/test_torch_population.py, tests/test_torch_checkpoint.py)."""
     with pytest.raises(SystemExit, match="not ported yet"):
         T.parse_args(["--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("flag", [["--arch", "gemma3-1b"], ["--smoke"],
+                                  ["--arch", "gemma3-1b", "--smoke"],
+                                  ["--population", "sync", "--arch", "gemma3-1b"],
+                                  ["--fault-nan", "0.1", "--smoke"],
+                                  ["--checkpoint", "ckpt", "--arch", "stablelm-1.6b"]])
+def test_llm_flags_parse(flag):
+    """The flags of the LLM path parse, with the reference's defaults."""
+    args = T.parse_args(["--device", "cpu"] + flag)
+    assert (args.steps, args.batch, args.seq, args.p, args.q, args.pods) == (20, 2, 64, 4, 2, 1)
 
 
 def test_package_imports_no_jax():
@@ -188,7 +200,8 @@ def test_package_imports_no_jax():
             "repro_torch.configs.falcon_mamba_7b", "repro_torch.kernels.ssm_scan",
             "repro_torch.models.ssm",
             "repro_torch.kernels.flash_attention", "repro_torch.launch.engine",
-            "repro_torch.launch.serve", "repro_torch.models.attention",
+            "repro_torch.launch.serve", "repro_torch.launch.steps",
+            "repro_torch.models.attention",
             "repro_torch.models.mlp", "repro_torch.models.quant",
             "repro_torch.models.transformer"} <= set(mods)
 
