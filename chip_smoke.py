@@ -121,6 +121,38 @@ Serving (after phase 2b, 3h and 4b respectively):
      CPU the blockwise twin): first-step logits within 1e-4 of the largest
      |logit|, and equal greedy tokens from the engine.
 
+The rest of dense serving and the last two dense configs (phase 2c's
+cases, then after 3d, 3e and 4f respectively):
+  2c. also gemma3-4b's prefill shape [16, 4096, 256] (windows 0 and 1024)
+     and nemotron-4-15b's [96, 4096, 128] (head_dim 128, GQA 48:8), fp32;
+  3j. phase 3d's command with --spec-gamma 4 (self-speculative decoding, a
+     13-layer draft): the tokens equal phase 3d's plain tokens (the same
+     seed draws the same weights on the card), exactly 26 flash launches
+     and no other, one spec executor; acceptance and ms a generated token;
+     then the same prompts through the engine with the output projections
+     of layers >= 13 zeroed (those layers pass the residual through, so
+     the draft is the full model), against their own plain run: equal
+     tokens and acceptance >= 0.9. At the first token that differs from
+     plain decode the full model's top-2 logit gap is printed;
+  3k. ``repro_torch.launch.loadgen`` with --arch gemma3-1b --full --requests
+     8 --rate 4 --prompt-len 4096 --gen 16 --shared-prefix-frac 0.75
+     --prefix-cache --cache-dtype bf16 --max-batch 2, the counters zeroed
+     just before and read just after: hits > 0, 2048 seeded tokens a hit,
+     flash launches a positive multiple of 26 (the missed prefill groups)
+     and no other kernel, every request's tokens equal to a solo plain run
+     of its prompt; p50/p99 queue, first-token and total latency,
+     sustained tokens/s and SLO attainment;
+  3l. the serve CLI at full width for gemma3-4b and nemotron-4-15b (--batch
+     2 --prompt-len 4096 --gen 32), the card's memory freed before each:
+     exactly 34 and 32 flash launches and no other, tokens in [0, V),
+     prefill seconds, ms a decode step, peak device memory; nemotron-4-15b
+     (varied tokens: an untied head) again with --spec-gamma 4, its tokens
+     equal to its plain run's;
+  4g. the card against the CPU at smoke widths with a 4096-token prompt:
+     gemma3-1b's spec and plain tokens equal on both; gemma3-4b's and
+     nemotron-4-15b's first-step logits within 1e-4 of the largest |logit|
+     and equal greedy tokens.
+
 Serving the ssm family (after phase 2c, 3d and 4c respectively):
   2d. the scan kernel against its plain PyTorch version on the card, bit for
      bit (torch.equal), in fp32 and bf16: falcon-mamba-7b's prefill chunk
@@ -145,6 +177,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -186,7 +219,7 @@ from repro_torch.kernels.compress_cases import EDGE_WIDTHS, edge_case_rows, same
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
                                                  flash_attention_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import loadgen, serve  # noqa: E402
 from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.timing import device_ms  # noqa: E402
 from repro_torch.data.synthetic import llm_batch_fn  # noqa: E402
@@ -236,10 +269,29 @@ FLASH_CASES = (
     ("tile edge, window 1, S=4097", 2, 4097, 256, 1, torch.float32),
     ("tile edge, window = S", 2, 65, 256, 65, torch.float32),
     ("tile edge, window > S, D=64 bf16", 2, 4097, 64, 5000, torch.bfloat16),
+    ("gemma3-4b prefill, global layer", 16, 4096, 256, 0, torch.float32),
+    ("gemma3-4b prefill, local layer", 16, 4096, 256, 1024, torch.float32),
+    ("nemotron-4-15b prefill", 96, 4096, 128, 0, torch.float32),
 )
 SERVE_ARGV = ["--arch", "gemma3-1b", "--full", "--batch", "2", "--prompt-len", "4096",
               "--gen", "32"]
 SERVE_PARITY_LEN, SERVE_PARITY_GEN = 4096, 8
+# self-speculative decoding at gemma3-1b full width (phase 3j): phase 3d's
+# command with a draft of 4 tokens from the first 13 layers
+SPEC_ARGV = SERVE_ARGV + ["--spec-gamma", "4"]
+# arrival-driven traffic sharing a 3072-token system-prompt head (phase 3k):
+# the prefix cache seeds its pow2 block of 2048 tokens on a hit
+LOADGEN_ARGV = ["--arch", "gemma3-1b", "--full", "--requests", "8", "--rate", "4",
+                "--prompt-len", "4096", "--gen", "16", "--shared-prefix-frac", "0.75",
+                "--prefix-cache", "--cache-dtype", "bf16", "--max-batch", "2"]
+PREFIX_LEN = 2048
+# the last two dense configs at full width (phase 3l); nemotron-4-15b's
+# untied head gives varied tokens, so it also runs speculatively against
+# its plain tokens (gemma3's sqrt(d)-scaled tied embedding makes a random
+# model repeat its last prompt token)
+DENSE_ARCHS = ("gemma3-4b", "nemotron-4-15b")
+DENSE_SERVE_ARGV = ["--full", "--batch", "2", "--prompt-len", "4096", "--gen", "32"]
+DENSE_SPEC_ARCH = "nemotron-4-15b"
 # (name, (B, T, C), a and b dtype, h0 dtype); the first is the serving
 # path's prefill chunk (C = d_inner * ssm_state of falcon-mamba-7b)
 SCAN_CASES = (
@@ -631,6 +683,219 @@ def serve_parity(arch, prompt_len, gen, *devices):
                              decode_block=4)
         toks, _ = engine.generate(list(prompts), gen)
         out.append((logits[:, -1].cpu(), toks))
+    return out
+
+
+def top2_gap(cfg, params, prompt, tokens):
+    """The full model's top-2 logit gap after ``prompt`` and ``tokens``
+    (one fresh-cache forward in fp32 caches): how near a tie the next
+    token is."""
+    seq = np.concatenate([np.asarray(prompt, np.int32), np.asarray(tokens, np.int32)])[None]
+    dev = params["embed"]["table"].device
+    caches = T.init_decode_caches(cfg, 1, seq.shape[1], torch.float32, dev)
+    hidden, _ = T.decode_hidden(cfg, params, torch.from_numpy(seq).to(dev), caches, 0,
+                                fresh_cache=True)
+    top = torch.topk(T.logits_from_hidden(cfg, params, hidden[:, -1])[0], 2).values
+    return float(top[0] - top[1])
+
+
+def check_same_tokens(tag, cfg, params, prompts, want, got):
+    """Fails unless every request's tokens ``got`` equal ``want``; at the
+    first mismatch prints the full model's top-2 logit gap there."""
+    for i, (w, g) in enumerate(zip(want, got)):
+        if list(w) == list(g):
+            continue
+        j = next((t for t, (a, b) in enumerate(zip(w, g)) if a != b), min(len(w), len(g)))
+        gap = top2_gap(cfg, params, prompts[i], w[:j]) if j < min(len(w), len(g)) else None
+        print(f"[{tag}] request {i}: first mismatch at token {j}: want {list(w)[j:j + 4]} got "
+              f"{list(g)[j:j + 4]}; the full model's top-2 logit gap there: {gap}")
+        check(False, f"{tag}: request {i}'s tokens differ from the plain run's at token {j} "
+                     f"(top-2 logit gap {gap})")
+    check(len(want) == len(got), f"{tag}: {len(got)} requests, expected {len(want)}")
+
+
+def pass_through(params, dk):
+    """``params`` with the output projections (attention ``wo``, MLP
+    ``w_down``) of layers >= dk zeroed in place: those layers then pass the
+    residual through exactly, so a dk-layer draft is the full model."""
+    params["layers"]["attn"]["wo"][dk:] = 0
+    params["layers"]["mlp"]["w_down"][dk:] = 0
+    return params
+
+
+def check_spec_serving(device, plain_tokens):
+    """Phase 3j: the serve CLI with --spec-gamma 4 at gemma3-1b full width
+    (tokens equal phase 3d's plain ones, 26 flash launches and no other,
+    one spec executor); then, through the engine, the same prompts with the
+    layers past the draft passing the residual through, against their own
+    plain run: equal tokens and acceptance >= 0.9."""
+    args = serve.parse_args(SPEC_ARGV)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    gamma = args.spec_gamma
+    reset_launch_counts()
+    report, tokens = run_serve_cli(SPEC_ARGV)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    spec, ex = report["speculative"], report["compiled_executors"]
+    print(f"[spec] launches={counts} speculative={spec} executors={ex} "
+          f"prefill_s={report['prefill_s']} ms_per_generated_token (per request)="
+          f"{report['ms_per_decode_step']} decode_tok_per_s={report['decode_tok_per_s']} "
+          f"peak_device_bytes={report['peak_device_bytes']}")
+    if tokens != plain_tokens:
+        params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+        check_same_tokens("spec", cfg, params, prompts, plain_tokens, tokens)
+    check(counts == {"flash_attention": cfg.num_layers},
+          f"spec serving launches {counts}, expected {cfg.num_layers} flash launches and no other")
+    check(ex["spec_buckets"] == ex["spec_compiles"] == 1, f"spec executors {ex}")
+    out = {"random": {"acceptance": spec["acceptance"],
+                      "ms_per_token": report["ms_per_decode_step"]}}
+    del report, tokens
+    params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+    pass_through(params, cfg.num_layers // 2)
+    args.max_batch = args.batch
+    runs = []
+    for g in (0, gamma):
+        args.spec_gamma = g
+        engine = serve.build_engine(cfg, params, args)
+        t0 = time.perf_counter()
+        toks, rep = engine.generate(list(prompts), args.gen)
+        wall = time.perf_counter() - t0
+        prefill_s = max(r["prefill_s"] for r in rep["requests"])
+        runs.append((toks, rep, 1000 * (wall - prefill_s) / args.gen))
+        del engine
+    (plain, _, plain_ms), (toks, rep, spec_ms) = runs
+    acc = rep["speculative"]["acceptance"]
+    print(f"[spec-pass-through] layers >= {cfg.num_layers // 2} pass the residual through: "
+          f"speculative={rep['speculative']} ms_per_generated_token (per request) spec="
+          f"{spec_ms} plain={plain_ms}")
+    check_same_tokens("spec-pass-through", cfg, params, prompts, plain, toks)
+    check(acc >= 0.9, f"pass-through acceptance {acc} under 0.9")
+    out["pass_through"] = {"acceptance": acc, "ms_per_token": spec_ms,
+                           "plain_ms_per_token": plain_ms}
+    return out
+
+
+def check_loadgen(device):
+    """Phase 3k: the load generator with the prefix cache at gemma3-1b full
+    width: hits seed 2048 tokens each, every request's tokens equal a solo
+    plain run of its prompt, flash runs 26 times a missed prefill group."""
+    args = loadgen.parse_args(LOADGEN_ARGV)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    reset_launch_counts()
+    rep, engine, trace = loadgen.run(args)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    pc, ex = rep["engine"]["prefix_cache"], rep["engine"]["compiled_executors"]
+    print(f"[loadgen] launches={counts} prefix_cache={pc} executors={ex} "
+          f"queue_s={rep['queue_s']} first_token_s={rep['first_token_s']} "
+          f"total_s={rep['total_s']} sustained_tokens_per_s={rep['sustained_tokens_per_s']} "
+          f"slo_attainment={rep['slo_attainment']} (first token within "
+          f"{rep['slo_first_token_s']} s) span_s={rep['span_s']} wall_s={rep['wall_s']} "
+          f"peak_device_bytes={rep['peak_device_bytes']} "
+          f"arrivals_s={[round(r.t_arrival, 4) for r in trace]}")
+    check(rep["requests"] == len(trace) and rep["generated_tokens"] == len(trace) * args.gen,
+          f"loadgen finished {rep['requests']} requests, {rep['generated_tokens']} tokens")
+    check(pc["hits"] > 0 and pc["seeded_tokens"] == PREFIX_LEN * pc["hits"],
+          f"prefix cache stats {pc}")
+    check(pc["hits"] + pc["misses"] == len(trace), f"prefix cache stats {pc}")
+    flash = counts.pop("flash_attention", 0)
+    check(not counts and flash > 0 and flash % cfg.num_layers == 0,
+          f"loadgen launches flash={flash} others={counts}, expected a positive multiple "
+          f"of {cfg.num_layers} and no other")
+    done = sorted(engine.done, key=lambda r: r.rid)
+    solo = []
+    for r in done:
+        eng = ServeEngine(cfg, engine.params, max_batch=1, cache_dtype=args.cache_dtype,
+                          decode_block=args.decode_block)
+        solo.append(eng.generate([r.prompt], r.max_new)[0][0])
+        del eng
+    check_same_tokens("loadgen", cfg, engine.params, [r.prompt for r in done], solo,
+                      [r.tokens for r in done])
+    print(f"[loadgen] every request's {args.gen} tokens equal a solo plain run of its prompt "
+          f"({len(done)} requests, {pc['hits']} seeded from the store)")
+    out = {k: rep[k] for k in ("queue_s", "first_token_s", "total_s", "sustained_tokens_per_s",
+                               "slo_attainment", "peak_device_bytes")}
+    out.update(prefix_cache=pc, flash_launches=flash)
+    return out
+
+
+def check_dense_configs():
+    """Phase 3l: gemma3-4b and nemotron-4-15b through the serve CLI at full
+    width, one after the other with the card's memory freed between them:
+    exactly one flash launch a layer, tokens in [0, V), prefill seconds, ms
+    a decode step and peak device memory."""
+    out = {}
+    for arch in DENSE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        argv = ["--arch", arch] + DENSE_SERVE_ARGV
+        args = serve.parse_args(argv)
+        cfg = get_config(arch, smoke=args.smoke)
+        before = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        report, tokens = run_serve_cli(argv)
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        gen = args.gen
+        print(f"[serve-{arch}] launches={counts} params={cfg.param_count()} "
+              f"({4 * cfg.param_count()} bytes in fp32) allocated before the run={before} "
+              f"init_s={report['init_s']} prefill_s={report['prefill_s']} "
+              f"ms_per_decode_step={report['ms_per_decode_step']} "
+              f"decode_tok_per_s={report['decode_tok_per_s']} first_token_s="
+              f"{[r['first_token_s'] for r in report['requests']]} "
+              f"executors={report['compiled_executors']} "
+              f"peak_device_bytes={report['peak_device_bytes']} "
+              f"peak_device_GiB={report['peak_device_bytes'] / 2 ** 30}")
+        check(counts == {"flash_attention": cfg.num_layers},
+              f"{arch}: launches {counts}, expected {cfg.num_layers} flash launches and no other")
+        check(report["generated_tokens"] == 2 * gen, f"{arch}: {report['generated_tokens']} tokens")
+        check(len(tokens) == 2 and all(len(t) == gen and all(0 <= x < cfg.vocab_size for x in t)
+                                       for t in tokens), f"{arch}: tokens out of [0, V)")
+        out[arch] = {k: report[k] for k in ("prefill_s", "ms_per_decode_step",
+                                            "peak_device_bytes", "init_s")}
+        del report
+        if arch == DENSE_SPEC_ARCH:
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_launch_counts()
+            spec_report, spec_tokens = run_serve_cli(argv + ["--spec-gamma", "4"])
+            torch.cuda.synchronize()
+            counts = dict(launch_counts)
+            spec = spec_report["speculative"]
+            print(f"[serve-{arch}-spec] launches={counts} speculative={spec} "
+                  f"ms_per_generated_token (per request)={spec_report['ms_per_decode_step']} "
+                  f"(plain {out[arch]['ms_per_decode_step']}) distinct tokens a request="
+                  f"{[len(set(t)) for t in tokens]}")
+            check(counts == {"flash_attention": cfg.num_layers},
+                  f"{arch} spec: launches {counts}, expected {cfg.num_layers} flash launches")
+            if spec_tokens != tokens:
+                params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len,
+                                                     args.seed, torch.device("cuda"))
+                check_same_tokens(f"{arch}-spec", cfg, params, prompts, tokens, spec_tokens)
+            out[arch]["spec"] = {"acceptance": spec["acceptance"],
+                                 "ms_per_token": spec_report["ms_per_decode_step"]}
+            del spec_report, spec_tokens
+        del tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_parity(arch, prompt_len, gen, *devices):
+    """``arch``'s smoke widths, one prompt pair: (plain tokens, spec tokens
+    with γ = 4) per device, from the same CPU-drawn params."""
+    cfg = get_config(arch, smoke=True)
+    params0 = L.init_params(T.model_specs(cfg), torch.Generator().manual_seed(0))
+    prompts = serve.build_inputs(cfg, 2, prompt_len, seed=0)[1]
+    out = []
+    for dev in devices:
+        params = tree_map(lambda t: t.to(dev), params0)
+        runs = []
+        for gamma in (0, 4):
+            engine = ServeEngine(cfg, params, max_batch=2, cache_dtype=torch.float32,
+                                 decode_block=4, spec_gamma=gamma)
+            runs.append(engine.generate(list(prompts), gen)[0])
+        out.append(runs)
     return out
 
 
@@ -1348,6 +1613,17 @@ def main() -> int:
     check(report["generated_tokens"] == 2 * 32, f"generated {report['generated_tokens']} tokens")
     check(len(tokens) == 2 and all(len(t) == 32 and all(0 <= x < vocab for x in t)
                                    for t in tokens), "serving tokens out of [0, V)")
+    plain_tokens = tokens
+
+    # -- phase 3j: self-speculative decoding at full width ----------------------
+    spec_summary = check_spec_serving(device, plain_tokens)
+    print(f"[spec-summary] {json.dumps(spec_summary)}")
+
+    # -- phase 3k: the load generator with the prefix cache --------------------
+    load_summary = check_loadgen(device)
+    print(f"[loadgen-summary] {json.dumps(load_summary)}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- phase 3e: the ssm serving path at full width ------------------------
     reset_launch_counts()
@@ -1377,6 +1653,10 @@ def main() -> int:
     del report, tokens
     torch.cuda.empty_cache()
     time_cpu_draw(ssm_cfg)
+
+    # -- phase 3l: gemma3-4b and nemotron-4-15b at full width -----------------
+    dense_summary = check_dense_configs()
+    print(f"[dense-summary] {json.dumps(dense_summary)}")
 
     # -- phase 4: the card against the CPU ---------------------------------
     on_cpu, on_card = same_start_losses(torch.device("cpu"), device)
@@ -1440,6 +1720,29 @@ def main() -> int:
     check(launch_counts["fused_compress"] > 0, "the card's LLM parity run skipped the kernel")
     check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
           f"LLM path: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
+
+    # -- phase 4g: the card against the CPU on spec decode and the new configs -
+    reset_launch_counts()
+    (plain_cpu, spec_cpu), (plain_card, spec_card) = spec_parity(
+        "gemma3-1b", SERVE_PARITY_LEN, SERVE_PARITY_GEN, torch.device("cpu"), device)
+    print(f"[parity-spec] flash launches on the card={launch_counts['flash_attention']} "
+          f"spec tokens cpu={spec_cpu} cuda={spec_card} plain cpu={plain_cpu} "
+          f"cuda={plain_card}")
+    check(launch_counts["flash_attention"] > 0, "the card's spec parity run skipped the kernel")
+    check(spec_card == spec_cpu == plain_cpu == plain_card,
+          "spec decode: card and CPU tokens, spec and plain, differ")
+    for arch in DENSE_ARCHS:
+        reset_launch_counts()
+        (lg_cpu, tok_cpu), (lg_card, tok_card) = serve_parity(
+            arch, SERVE_PARITY_LEN, SERVE_PARITY_GEN, torch.device("cpu"), device)
+        rel = float((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max())
+        print(f"[parity-serve-{arch}] flash launches on the card="
+              f"{launch_counts['flash_attention']} logits max |card - cpu| / max |cpu| = {rel} "
+              f"tokens cpu={tok_cpu} cuda={tok_card}")
+        check(launch_counts["flash_attention"] > 0, f"{arch}: the card's parity run skipped "
+                                                    f"the kernel")
+        check(rel <= 1e-4, f"{arch}: first-step logits differ by {rel} relative (> 1e-4)")
+        check(tok_card == tok_cpu, f"{arch}: card and CPU greedy tokens differ")
 
     # -- phase 5: summary ----------------------------------------------------
     kernels = [{

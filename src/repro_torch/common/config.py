@@ -159,8 +159,8 @@ INPUT_SHAPES: Dict[str, InputShape] = {
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 # the reference's architectures that the port does not run yet
-UNPORTED_ARCHS = ("deepseek-v3-671b", "gemma3-4b", "grok-1-314b", "nemotron-4-15b",
-                  "qwen2-vl-72b", "whisper-medium", "zamba2-2.7b")
+UNPORTED_ARCHS = ("deepseek-v3-671b", "grok-1-314b", "qwen2-vl-72b", "whisper-medium",
+                  "zamba2-2.7b")
 
 
 def register_config(name: str, full: Callable[[], ModelConfig], smoke: Callable[[], ModelConfig]):

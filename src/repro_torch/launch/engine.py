@@ -23,12 +23,23 @@ reference's names.
 * **insert** — continuous batching: one executor copies a prefilled
   group's rows of every cache group (``"kv"``, ``"ssm"``) into freed decode
   slots; pad rows carry ``dst == max_batch`` and are dropped.
+* **spec** (opt-in via ``spec_gamma``, dense family) — self-speculative
+  decoding: each round drafts γ tokens with the first ``spec_draft_layers``
+  layers (``T.draft_decode_step``) and verifies them with ONE full-model
+  pass over [B, γ+1] tokens, accepting the longest matching prefix. Every
+  emitted token is the full model's argmax, so greedy output equals plain
+  decode; one host sync per block.
+* **harvest** (opt-in via ``prefix_cache``, dense family) — prefix caching:
+  after a prefill whose pow2 prompt head missed the store, one executor
+  masks the caches back to exactly-p-tokens state; each row is cloned into
+  a device-resident LRU store keyed by the head's digest, and later
+  requests with the same head seed fresh caches from the store (a
+  batch-axis concatenation) and skip prefilling those p tokens.
 
 Sampling is greedy ``argmax`` at temperature 0; otherwise it draws on the
 device from one ``torch.Generator`` seeded from ``seed``, so two engines
 with the same seed give the same tokens (not the reference's: the RNGs
-differ). Self-speculative decoding (``spec_gamma``) and the prefix cache
-are not ported yet and raise.
+differ).
 
 ``sequential_generate`` / ``sequential_prefill`` / ``sequential_decode``
 keep the token-by-token path (one forward and one host sample per token)
@@ -36,8 +47,9 @@ as the parity oracle.
 """
 from __future__ import annotations
 
+import hashlib
 import time
-from collections import Counter
+from collections import Counter, OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -48,6 +60,7 @@ from repro_torch.common.buckets import pow2_ceil as _pow2_at_least
 from repro_torch.common.buckets import pow2_floor as _pow2_at_most
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.models.attention import INT32_MAX
 
 CACHE_DTYPES = {
     "int8": torch.int8,
@@ -121,12 +134,9 @@ class ServeEngine:
                  cache_dtype=torch.bfloat16, decode_block: int = 8,
                  temperature: float = 0.0, seed: int = 0,
                  max_prefill_block: int = 4096, spec_gamma: int = 0,
-                 prefix_cache: bool = False):
+                 spec_draft_layers: Optional[int] = None, prefix_cache: bool = False,
+                 prefix_min_len: int = 8, prefix_store_max: int = 32):
         T.model_specs(cfg)  # raises for a family that is not ported yet
-        if int(spec_gamma):
-            raise NotImplementedError("self-speculative decoding (spec_gamma) is not ported yet")
-        if prefix_cache:
-            raise NotImplementedError("the prefix cache is not ported yet")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"]["table"].device
@@ -135,12 +145,30 @@ class ServeEngine:
         self.decode_block = int(decode_block)
         self.temperature = float(temperature)
         self.max_prefill_block = int(max_prefill_block)
-        self.spec_gamma = 0  # speculative decoding: not ported yet
+        self.spec_gamma = int(spec_gamma)
+        if self.spec_gamma:
+            if not T.supports_self_speculation(cfg):
+                raise ValueError(
+                    f"speculative decoding unsupported for family {cfg.family!r}: "
+                    f"recurrent state cannot roll back rejected drafts")
+            if self.temperature > 0:
+                raise ValueError("speculative decoding is greedy-only: lossless "
+                                 "acceptance compares against argmax targets")
+        self.spec_draft_layers = (int(spec_draft_layers) if spec_draft_layers
+                                  else max(1, cfg.num_layers // 2))
+        self.prefix_cache = bool(prefix_cache)
+        self.prefix_min_len = int(prefix_min_len)
+        self.prefix_store_max = int(prefix_store_max)
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
         self._prefill_fns: Dict = {}  # (Bp, block, first, cache_len) -> executor
         self._decode_fns: Dict = {}  # (B, cache_len, block) -> executor
         self._insert_fns: Dict = {}  # (Bp, B, cache_len) -> executor
+        self._spec_fns: Dict = {}  # (B, cache_len, block, gamma, dk) -> executor
+        self._harvest_fns: Dict = {}  # (Bp, p, cache_len) -> executor
         self._builds: Counter = Counter()  # executors built, by kind
+        self._prefix_store: OrderedDict = OrderedDict()  # (digest, p, L) -> rows
+        self._spec_stats = {"drafted": 0, "accepted": 0}
+        self._prefix_stats = {"hits": 0, "misses": 0, "seeded_tokens": 0}
         self._next_rid = 0
         self.waiting: List[Request] = []
         self.done: List[Request] = []
@@ -238,6 +266,73 @@ class ServeEngine:
             fn = self._insert_fns[key] = serve_insert
         return fn
 
+    def _spec_fn(self, B: int, cache_len: int, block: int, gamma: int, dk: int):
+        key = (B, cache_len, block, gamma, dk)
+        fn = self._spec_fns.get(key)
+        if fn is None:
+            cfg = self.cfg
+            self._builds["spec"] += 1
+
+            # One round = γ truncated-depth drafts + ONE full-model verify
+            # over [last committed, d1..dγ]; every emitted token is the full
+            # model's argmax (full_next[:, :n_acc + 1]), so greedy output is
+            # plain decode's. Rejected columns hold stale K/V, but the cache
+            # column == sequence position and writes precede reads, so each
+            # stale column is overwritten before any query attends it.
+            def serve_spec_decode(params, caches, tok, pos, active):
+                toks, n_emit = [], []
+                for _ in range(block):
+                    t, p, drafts = tok, pos, []
+                    for _ in range(gamma):
+                        widx = torch.where(active, p, cache_len)
+                        logits, caches = T.draft_decode_step(cfg, params, t, caches, widx, dk)
+                        nt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+                        drafts.append(nt)
+                        t, p = nt[:, None], p + 1
+                    drafts = torch.stack(drafts, dim=1)  # [B, gamma]
+                    blk = torch.cat([tok, drafts], dim=1)  # [B, gamma + 1]
+                    widx = torch.where(active, pos, cache_len)
+                    logits, caches = T.decode_step(cfg, params, blk, caches, widx)
+                    full_next = torch.argmax(logits, dim=-1).to(torch.int32)
+                    match = (drafts == full_next[:, :-1]).to(torch.int32)
+                    n_acc = torch.sum(torch.cumprod(match, dim=1), dim=1).to(torch.int32)
+                    tok = torch.gather(full_next, 1, n_acc[:, None].long())
+                    pos = pos + n_acc + 1
+                    toks.append(full_next)
+                    n_emit.append(n_acc + 1)
+                # [block, B, gamma + 1] tokens and [block, B] counts
+                return caches, torch.stack(toks), torch.stack(n_emit)
+
+            fn = self._spec_fns[key] = serve_spec_decode
+        return fn
+
+    def _harvest_fn(self, Bp: int, p: int, cache_len: int):
+        key = (Bp, p, cache_len)
+        fn = self._harvest_fns.get(key)
+        if fn is None:
+            seq_ax = self._cache_axis(Bp, cache_len, "cache_seq")
+            self._builds["harvest"] += 1
+
+            # roll the caches back to exactly-p-tokens state: columns >= p
+            # revert to the init values (0; the INT32_MAX position
+            # sentinel), so the harvested rows replay the prefix exactly.
+            # The result is new tensors: the live caches stay as they are.
+            def serve_harvest(caches):
+                out = {}
+                for group, axes in seq_ax.items():
+                    masked = []
+                    for c, ax in zip(caches[group], axes):
+                        shape = [1] * c.dim()
+                        shape[ax] = c.shape[ax]
+                        keep = (torch.arange(c.shape[ax], device=c.device) < p).view(shape)
+                        init = INT32_MAX if c.dtype == torch.int32 else 0
+                        masked.append(torch.where(keep, c, init))
+                    out[group] = tuple(masked)
+                return out
+
+            fn = self._harvest_fns[key] = serve_harvest
+        return fn
+
     def _cache_axis(self, B: int, cache_len: int, name: str):
         """Which axis of each cache leaf carries logical axis ``name`` (the
         leaves are layer-stacked, so it is NOT 0)."""
@@ -251,12 +346,76 @@ class ServeEngine:
         """Executor-cache sizes and executors built, under the reference's
         names (they must agree: one executor per bucket)."""
         sizes = {"prefill": len(self._prefill_fns), "decode": len(self._decode_fns),
-                 "insert": len(self._insert_fns), "spec": 0, "harvest": 0}
+                 "insert": len(self._insert_fns), "spec": len(self._spec_fns),
+                 "harvest": len(self._harvest_fns)}
         out = {}
         for kind in EXECUTOR_KINDS:
             out[f"{kind}_buckets"] = sizes[kind]
             out[f"{kind}_compiles"] = self._builds[kind]
         return out
+
+    # -- prefix caching -----------------------------------------------------
+
+    def _prefix_enabled(self) -> bool:
+        # attention families only: their cache rows are pure positional K/V;
+        # a recurrent state entangles the whole prefix
+        return self.prefix_cache and self.cfg.family in ("dense", "vlm", "moe")
+
+    def _prefix_len(self, S: int) -> int:
+        """pow2 prompt-head length to share; 0 when too short to bother.
+        Strictly < S so at least one block still prefills (first-token
+        logits must come from a real forward)."""
+        p = _pow2_at_most(max(S - 1, 1))
+        return p if self.prefix_min_len <= p < S else 0
+
+    @staticmethod
+    def _prefix_key(prompt: np.ndarray, p: int, cache_len: int):
+        return (hashlib.sha1(prompt[:p].tobytes()).hexdigest(), p, cache_len)
+
+    def _try_seed_prefix(self, group: List[Request], Bp: int, cache_len: int):
+        """(p, seeded caches | None): caches covering the first p tokens,
+        concatenated from stored device rows when EVERY row in the group
+        hits; a single miss falls back to full prefill (p says what to
+        harvest afterwards). The seeded caches are new tensors (a
+        concatenation, or a clone for Bp == 1): the prefill writes them in
+        place, and the store must keep its rows."""
+        S = group[0].prompt.shape[0]
+        p = self._prefix_len(S)
+        if not p:
+            return 0, None
+        keys = [self._prefix_key(r.prompt, p, cache_len) for r in group]
+        if any(k not in self._prefix_store for k in keys):
+            self._prefix_stats["misses"] += len(group)
+            return p, None
+        rows = [self._prefix_store[k] for k in keys]
+        for k in keys:
+            self._prefix_store.move_to_end(k)
+        self._prefix_stats["hits"] += len(group)
+        self._prefix_stats["seeded_tokens"] += p * len(group)
+        rows += [rows[0]] * (Bp - len(rows))  # pad rows replay request 0
+        bx = self._batch_axes(Bp, cache_len)
+        caches = {}
+        for group_name, axes in bx.items():
+            caches[group_name] = tuple(
+                torch.cat([r[group_name][j] for r in rows], dim=ax) if Bp > 1
+                else rows[0][group_name][j].clone()
+                for j, ax in enumerate(axes))
+        return p, caches
+
+    def _harvest_prefixes(self, group, Bp: int, p: int, cache_len: int, caches):
+        """Store each row's exactly-p-tokens cache state (one mask pass and
+        a clone a row per MISS group, no host sync; hits never pay this).
+        Each stored row is its own tensor, not a view of the masked batch."""
+        masked = self._harvest_fn(Bp, p, cache_len)(caches)
+        bx = self._batch_axes(Bp, cache_len)
+        for i, r in enumerate(group):
+            k = self._prefix_key(r.prompt, p, cache_len)
+            self._prefix_store[k] = {
+                g: tuple(c.narrow(ax, i, 1).clone() for c, ax in zip(masked[g], axes))
+                for g, axes in bx.items()}
+            self._prefix_store.move_to_end(k)
+        while len(self._prefix_store) > self.prefix_store_max:
+            self._prefix_store.popitem(last=False)  # LRU eviction
 
     # -- prefill ------------------------------------------------------------
 
@@ -272,6 +431,13 @@ class ServeEngine:
         toks[len(group):] = toks[0]  # pad rows replay request 0; discarded
         toks_dev = torch.from_numpy(toks).to(self.device)
         idx, tok, caches = 0, None, None
+        harvest_p = 0
+        if self._prefix_enabled():
+            p, seeded = self._try_seed_prefix(group, Bp, cache_len)
+            if seeded is not None:
+                caches, idx = seeded, p
+            else:
+                harvest_p = p
         while idx < S:
             blk = min(_pow2_at_most(S - idx), self.max_prefill_block)
             first = caches is None
@@ -282,11 +448,14 @@ class ServeEngine:
             else:
                 tok, caches = fn(self.params, caches, tb, idx, self.temperature)
             idx += blk
+        if harvest_p:
+            self._harvest_prefixes(group, Bp, harvest_p, cache_len, caches)
         return tok, caches
 
     # -- scheduling ---------------------------------------------------------
 
     def _required_cache_len(self, r: Request) -> int:
+        # +gamma: a speculative verify block may overshoot the last token
         return _pow2_at_least(r.prompt.shape[0] + r.max_new + self.spec_gamma)
 
     def _active_any(self) -> bool:
@@ -373,6 +542,38 @@ class ServeEngine:
                 if r.finished:
                     self._finish(r, now)
 
+    def _spec_block_run(self) -> None:
+        st = self._state
+        gamma = self.spec_gamma
+        fn = self._spec_fn(self.max_batch, self._cache_len, self.decode_block, gamma,
+                           self.spec_draft_layers)
+        dev = self.device
+        st["caches"], toks, n_emit = fn(
+            self.params, st["caches"], torch.from_numpy(st["tok"]).to(dev),
+            torch.from_numpy(st["pos"]).to(dev), torch.from_numpy(st["active"]).to(dev))
+        # the ONE host sync for this block: tokens and counts in one copy
+        out = torch.cat([toks, n_emit[..., None]], dim=-1).cpu().numpy()
+        toks_np, n_np = out[..., :-1], out[..., -1]
+        # every slot advanced by its emitted tokens, parked ones too; the
+        # next round starts from each slot's last emitted token
+        last = np.take_along_axis(toks_np[-1], n_np[-1][:, None] - 1, axis=1)
+        st["tok"] = last.astype(np.int32)
+        st["pos"] = st["pos"] + n_np.sum(axis=0).astype(np.int32)
+        now = time.perf_counter()
+        for b in range(toks_np.shape[0]):
+            for r in list(self._slots):
+                if r is None or r.finished:
+                    continue
+                n = int(n_np[b, r.slot])
+                self._spec_stats["drafted"] += gamma
+                self._spec_stats["accepted"] += n - 1
+                for t in toks_np[b, r.slot, :n]:
+                    r.tokens.append(int(t))
+                    if r.finished:
+                        break
+                if r.finished:
+                    self._finish(r, now)
+
     # -- public driving API --------------------------------------------------
 
     def pending(self) -> int:
@@ -380,10 +581,15 @@ class ServeEngine:
         return len(self.waiting) + sum(1 for s in self._slots if s is not None)
 
     def step(self) -> None:
-        """ONE scheduler tick: admit whatever fits, then run one decode block."""
+        """ONE scheduler tick: admit whatever fits, then run one decode
+        block. The load generator drives this directly so arrivals can be
+        interleaved with decoding at wall-clock trace times."""
         self._admit()
         if self._state is not None and self._active_any():
-            self._decode_block_run()
+            if self.spec_gamma:
+                self._spec_block_run()
+            else:
+                self._decode_block_run()
 
     def run(self) -> Dict:
         """Drain the queue; reports the requests finished during THIS run."""
@@ -406,13 +612,25 @@ class ServeEngine:
                 "first_token_s": round(r.t_first - r.t_submit, 6),
                 "total_s": round(r.t_done - r.t_submit, 6),
             })
-        return {
+        out = {
             "requests": reqs,
             "wall_s": round(wall_s, 6),
             "generated_tokens": gen_total,
             "tokens_per_s": round(gen_total / max(wall_s, 1e-9), 1),
             "compiled_executors": self.compile_counts(),
         }
+        if self.spec_gamma:
+            d = self._spec_stats
+            out["speculative"] = {
+                "gamma": self.spec_gamma,
+                "draft_layers": self.spec_draft_layers,
+                "drafted": d["drafted"],
+                "accepted": d["accepted"],
+                "acceptance": round(d["accepted"] / max(d["drafted"], 1), 4),
+            }
+        if self.prefix_cache:
+            out["prefix_cache"] = dict(self._prefix_stats)
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,12 @@
       --arch gemma3-1b --full --batch 2 --prompt-len 4096 --gen 32 [--trace out.json]
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch falcon-mamba-7b --full --batch 2 --prompt-len 4096 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch gemma3-1b --full --batch 2 --prompt-len 4096 --gen 32 --spec-gamma 4
 
-Takes the flags of ``repro_torch.launch.serve`` and needs a CUDA device.
+Takes the flags of ``repro_torch.launch.serve`` (``--spec-gamma``,
+``--spec-draft-layers`` and ``--prefix-cache`` included) and needs a CUDA
+device.
 Builds the model and prompts as the CLI does, warms the engine up with one
 full request batch, then profiles two windows under ``torch.profiler``:
 the prefill alone (the same prompts with one new token each: the first
@@ -31,7 +35,6 @@ import torch
 from repro_torch.common.backend import resolve_device
 from repro_torch.common.config import get_config
 from repro_torch.launch import serve
-from repro_torch.launch.engine import ServeEngine
 from repro_torch.launch.profile_train import busy_us, device_intervals
 
 PORT_KERNELS = {"flash": "flash_fwd_kernel", "scan": "ssm_scan_kernel"}
@@ -93,9 +96,7 @@ def main(argv=None):
         raise SystemExit("profile_serve measures the card: run it with --device cuda")
     cfg = get_config(args.arch, smoke=args.smoke)
     params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
-    engine = ServeEngine(cfg, params, max_batch=args.max_batch or args.batch,
-                         cache_dtype=args.cache_dtype, decode_block=args.decode_block,
-                         temperature=args.temperature, seed=args.seed)
+    engine = serve.build_engine(cfg, params, args)
 
     def requests(gen):
         return lambda: engine.generate(list(prompts), gen)

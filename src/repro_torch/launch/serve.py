@@ -10,8 +10,10 @@ card unless ``--device cpu`` is given.
       --batch 2 --prompt-len 4096 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --full \
       --batch 2 --prompt-len 4096 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \
+      --batch 2 --prompt-len 4096 --gen 32 --spec-gamma 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch gemma3-1b \
-      --batch 2 --prompt-len 32 --gen 8
+      --batch 2 --prompt-len 32 --gen 8 [--spec-gamma 2] [--prefix-cache]
 """
 from __future__ import annotations
 
@@ -63,19 +65,15 @@ def parse_args(argv=None):
     ap.add_argument("--max-batch", type=int, default=0,
                     help="decode slots (0 = --batch)")
     ap.add_argument("--spec-gamma", type=int, default=0,
-                    help="self-speculative draft length (not ported yet)")
+                    help="self-speculative draft length (0 = off; greedy only)")
     ap.add_argument("--spec-draft-layers", type=int, default=0,
-                    help="truncated-depth draft layers (not ported yet)")
+                    help="truncated-depth draft layers (0 = num_layers // 2)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="seed caches from seen prompt heads (not ported yet)")
+                    help="seed caches from previously-seen pow2 prompt heads")
     ap.add_argument("--sequential", action="store_true",
                     help="run the token-by-token oracle path")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.spec_gamma:
-        ap.error(f"--spec-gamma: self-speculative decoding is {NOT_PORTED}")
-    if args.prefix_cache:
-        ap.error(f"--prefix-cache: the prefix cache is {NOT_PORTED}")
     try:
         args.cache_dtype = parse_cache_dtype(args.cache_dtype)
     except ValueError as e:
@@ -86,6 +84,16 @@ def parse_args(argv=None):
     except (KeyError, NotImplementedError) as e:
         ap.error(f"--arch {args.arch}: {NOT_PORTED} ({e})")
     return args
+
+
+def build_engine(cfg, params, args):
+    """The ``ServeEngine`` the CLI's flags describe."""
+    return ServeEngine(cfg, params, max_batch=args.max_batch or args.batch,
+                       cache_dtype=args.cache_dtype, decode_block=args.decode_block,
+                       temperature=args.temperature, seed=args.seed,
+                       spec_gamma=args.spec_gamma,
+                       spec_draft_layers=args.spec_draft_layers or None,
+                       prefix_cache=args.prefix_cache)
 
 
 def run(args):
@@ -122,9 +130,7 @@ def run(args):
         }
         tokens = toks.tolist()
     else:
-        engine = ServeEngine(cfg, params, max_batch=args.max_batch or args.batch,
-                             cache_dtype=args.cache_dtype, decode_block=args.decode_block,
-                             temperature=args.temperature, seed=args.seed)
+        engine = build_engine(cfg, params, args)
         tokens, rep = engine.generate(list(prompts), args.gen)
         prefill_s = max((r["prefill_s"] for r in rep["requests"]), default=0.0)
         decode_s = max(rep["wall_s"] - prefill_s, 1e-9)
@@ -144,6 +150,9 @@ def run(args):
             "sample_output": tokens[0][:8],
         }
         report["generated_tokens"] = rep["generated_tokens"]
+        for k in ("speculative", "prefix_cache"):
+            if k in rep:
+                report[k] = rep[k]
     report["init_s"] = round(t_init, 3)
     report["device"] = str(device)
     if device.type == "cuda":

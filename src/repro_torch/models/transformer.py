@@ -9,8 +9,10 @@ flash kernel takes at run time.
 Decode caches are stacked the same way and written IN PLACE through the
 per-layer views (the reference donates them): ``decode_step`` returns the
 cache tensors it was given, updated — the dense family's KV caches under
-``"kv"``, the ssm family's (conv, h) states under ``"ssm"``. The MoE,
-hybrid, audio and VLM families raise "not ported yet".
+``"kv"``, the ssm family's (conv, h) states under ``"ssm"``.
+``draft_decode_step`` runs the first layers of the dense stack alone, the
+self-speculative draft. The MoE, hybrid, audio and VLM families raise "not
+ported yet".
 
 The train path (``forward``, ``backbone_forward``, ``lm_loss``) runs the
 dense family under autograd; ``remat`` wraps each layer, and each chunk of
@@ -386,3 +388,29 @@ def supports_self_speculation(cfg: ModelConfig) -> bool:
     """Self-speculative decoding needs a homogeneous stacked layer scan to
     truncate and caches that can be safely overwritten on rejection."""
     return cfg.family in ("dense", "vlm", "moe")
+
+
+def draft_decode_step(cfg: ModelConfig, params, tokens, caches, index, draft_layers: int):
+    """Truncated-depth (early-exit self-speculative) draft pass.
+
+    Runs only the FIRST ``draft_layers`` layers of the stack and reads draft
+    logits off the shared residual trunk (final norm + head). tokens:
+    [B, 1]; ``index``: int32 [B] per-slot write positions. Layers below
+    ``draft_layers`` write their cache slices in place, with what the
+    verify pass rewrites there (same trunk, same inputs); the reference's
+    splice of the head caches back into the full stack is implicit.
+    Returns (logits [B, 1, V], caches).
+    """
+    if not supports_self_speculation(cfg):
+        raise ValueError(f"self-speculation unsupported for family {cfg.family!r}")
+    if not (0 < draft_layers < cfg.num_layers):
+        raise ValueError(f"draft_layers must be in (0, {cfg.num_layers}), got {draft_layers}")
+    _require_ported(cfg)
+    B, S = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    x = x * _embed_scale(cfg, x.dtype)
+    positions = decode_positions(index, B, S, x.device)
+    windows = layer_windows(cfg, cfg.num_layers)[:draft_layers]
+    x, _ = dense_stack_decode(params["layers"], x, positions, cfg, windows, caches["kv"], index)
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    return logits_from_hidden(cfg, params, x), caches
