@@ -171,6 +171,27 @@ Serving the ssm family (after phase 2c, 3d and 4c respectively):
      300-token prompt (blocks of 256, 32, 8 and 4 tokens in the engine):
      first-step logits within 1e-4 of the largest |logit|, and equal greedy
      tokens.
+
+Serving the hybrid family, zamba2-2.7b (phase 2d's cases, then after 3e
+and 4d respectively):
+  2d. also zamba2-2.7b's prefill chunk [2, 256, 327680] and decode step
+     [2, 1, 327680] in fp32 (a Mamba-2 layer folds H·P·N = 80·64·64
+     channels into the scan, its per-head decay broadcast over P·N);
+  3m. ``repro_torch.launch.serve`` with --arch zamba2-2.7b --full --batch 2
+     --prompt-len 2080 --gen 32 --cache-dtype bf16, the launch counters
+     zeroed just before and read just after: the shared attention block's
+     ring is 2048 slots, so the prompt prefills as one 2048-token block (8
+     scan chunks a layer) and 32 single tokens; exactly 54 x (8 + 32) + 54
+     x 32 decode steps = 3888 scan launches, no flash and no compress
+     launch, 64 tokens in [0, V), prefill seconds, ms a decode step, peak
+     device memory, the weights' draw time and the executors built; then
+     the same seed's weights again and the first-step logits through the
+     engine's blocks: finite;
+  4h. the card against the CPU at zamba2-2.7b's smoke widths (4 layers, 2
+     super-blocks, window 32) with a 48-token prompt (a 32-token block,
+     then 16 single-token steps past the ring's edge) and 8 new tokens:
+     first-step logits within 1e-4 of the largest |logit|, equal greedy
+     tokens, scan launches and no flash launch on the card.
 """
 from __future__ import annotations
 
@@ -297,6 +318,9 @@ DENSE_SPEC_ARCH = "nemotron-4-15b"
 SCAN_CASES = (
     ("falcon-mamba-7b prefill chunk", (2, 256, 131072), torch.float32, torch.float32),
     ("falcon-mamba-7b decode step", (2, 1, 131072), torch.float32, torch.float32),
+    # zamba2-2.7b's Mamba-2 layer folds H * P * N = 80 * 64 * 64 channels
+    ("zamba2-2.7b prefill chunk", (2, 256, 327680), torch.float32, torch.float32),
+    ("zamba2-2.7b decode step", (2, 1, 327680), torch.float32, torch.float32),
     ("ragged", (3, 37, 7), torch.float32, torch.float32),
     ("ragged", (2, 300, 200), torch.float32, torch.float32),
     ("falcon-mamba-7b prefill chunk bf16", (2, 256, 131072), torch.bfloat16, torch.bfloat16),
@@ -307,6 +331,18 @@ SCAN_CASES = (
 SSM_SERVE_ARGV = ["--arch", "falcon-mamba-7b", "--full", "--batch", "2", "--prompt-len", "4096",
                   "--gen", "32"]
 SSM_PARITY_LEN, SSM_PARITY_GEN = 300, 8
+# zamba2-2.7b at full width (phase 3m). The cache bucket is pow2(2080 + 32)
+# = 4096, so the shared block's ring is min(4096, 2048) = 2048 slots: the
+# first 2048-token block fills the ring exactly, the 32-token tail then
+# prefills one token at a time across the ring's edge, and decode writes
+# wrap the ring. (A 4096-token prompt, as in the dense cells, would prefill
+# 2048 tokens one at a time.)
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_SERVE_ARGV = ["--arch", HYBRID_ARCH, "--full", "--batch", "2", "--prompt-len", "2080",
+                     "--gen", "32", "--cache-dtype", "bf16"]
+# phase 4h at smoke widths (window 32): a 32-token block, then 16 single
+# tokens past the ring's edge
+HYBRID_PARITY_LEN, HYBRID_PARITY_GEN = 48, 8
 PARITY_ROUNDS = 2
 ADAPTIVE_PARITY_STEPS = 8
 # the population path at full width: the reference CLI's defaults
@@ -666,6 +702,25 @@ def run_serve_cli(argv):
     return report, tokens
 
 
+def first_step_logits(cfg, params, prompts, cache_len, cache_dtype=torch.float32):
+    """Logits [B, V] after ``prompts`` (numpy [B, S]), on the CPU: one
+    fresh-cache block, or, for the hybrid family's ring, the engine's
+    blocks: one that fills the ring, then one token at a time past its
+    edge."""
+    dev = params["embed"]["table"].device
+    toks = torch.from_numpy(prompts).to(dev)
+    B, S = prompts.shape
+    caches = T.init_decode_caches(cfg, B, cache_len, cache_dtype, dev)
+    if cfg.family != "hybrid":
+        logits, _ = T.decode_step(cfg, params, toks, caches, 0, fresh_cache=True)
+        return logits[:, -1].cpu()
+    ring = min(cache_len, cfg.sliding_window)
+    hidden, caches = T.decode_hidden(cfg, params, toks[:, :ring], caches, 0)
+    for i in range(ring, S):
+        hidden, caches = T.decode_hidden(cfg, params, toks[:, i:i + 1], caches, i)
+    return T.logits_from_hidden(cfg, params, hidden[:, -1]).cpu()
+
+
 def serve_parity(arch, prompt_len, gen, *devices):
     """``arch``'s smoke widths, one prompt pair of ``prompt_len`` tokens:
     (first-step logits [B, V] on the CPU, greedy engine tokens) per device,
@@ -676,13 +731,11 @@ def serve_parity(arch, prompt_len, gen, *devices):
     out = []
     for dev in devices:
         params = tree_map(lambda t: t.to(dev), params0)
-        caches = T.init_decode_caches(cfg, 2, prompt_len, torch.float32, dev)
-        logits, _ = T.decode_step(cfg, params, torch.from_numpy(prompts).to(dev), caches, 0,
-                                  fresh_cache=True)
+        logits = first_step_logits(cfg, params, prompts, prompt_len)
         engine = ServeEngine(cfg, params, max_batch=2, cache_dtype=torch.float32,
                              decode_block=4)
         toks, _ = engine.generate(list(prompts), gen)
-        out.append((logits[:, -1].cpu(), toks))
+        out.append((logits, toks))
     return out
 
 
@@ -817,6 +870,59 @@ def check_loadgen(device):
                                "slo_attainment", "peak_device_bytes")}
     out.update(prefix_cache=pc, flash_launches=flash)
     return out
+
+
+def check_hybrid_serving(device):
+    """Phase 3m: the serve CLI at zamba2-2.7b's full width, the launch
+    counters zeroed just before and read just after: exactly one scan
+    launch a layer for each 256-token chunk of the ring-filling block, each
+    single-token step of the tail and each decode step, and no other kernel
+    of the port (the shared block never takes the fresh-cache route to the
+    flash kernel); tokens in [0, V). Then the same seed's weights again and
+    the prompts' first-step logits through the engine's blocks: finite."""
+    cfg = get_config(HYBRID_ARCH)
+    args = serve.parse_args(HYBRID_SERVE_ARGV)
+    reset_launch_counts()
+    report, tokens = run_serve_cli(HYBRID_SERVE_ARGV)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    cache_len = 1 << (args.prompt_len + args.gen - 1).bit_length()
+    ring = min(cache_len, cfg.sliding_window)
+    decode_steps = args.decode_block * math.ceil((args.gen - 1) / args.decode_block)
+    want_prefill = cfg.num_layers * (math.ceil(ring / SSM_CHUNK) + args.prompt_len - ring)
+    want = want_prefill + cfg.num_layers * decode_steps
+    print(f"[serve-hybrid] launches={counts} (prefill {want_prefill}: {cfg.num_layers} layers x "
+          f"({math.ceil(ring / SSM_CHUNK)} chunks of the {ring}-token block + "
+          f"{args.prompt_len - ring} single-token steps); {cfg.num_layers} x {decode_steps} "
+          f"decode steps) prefill_s={report['prefill_s']} "
+          f"ms_per_decode_step={report['ms_per_decode_step']} "
+          f"decode_tok_per_s={report['decode_tok_per_s']} first_token_s="
+          f"{[r['first_token_s'] for r in report['requests']]} "
+          f"executors={report['compiled_executors']} "
+          f"peak_device_bytes={report['peak_device_bytes']} "
+          f"peak_device_GiB={report['peak_device_bytes'] / 2 ** 30} "
+          f"init_s={report['init_s']} (weights of {cfg.param_count()} params drawn on the card)")
+    check(counts == {"ssm_scan": want},
+          f"hybrid serving path launches {counts}, expected {want} scan launches and no other")
+    check(report["generated_tokens"] == 2 * args.gen,
+          f"generated {report['generated_tokens']} tokens")
+    check(len(tokens) == 2 and all(len(t) == args.gen and all(0 <= x < cfg.vocab_size
+                                                              for x in t) for t in tokens),
+          "hybrid serving tokens out of [0, V)")
+    del report
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+    logits = first_step_logits(cfg, params, prompts, cache_len, args.cache_dtype)
+    first = torch.argmax(logits, dim=-1).tolist()
+    print(f"[serve-hybrid] first-step logits {list(logits.shape)}: max |logit| "
+          f"{float(logits.abs().max())}, argmax {first} (the CLI's first tokens "
+          f"{[t[0] for t in tokens]})")
+    check(bool(torch.isfinite(logits).all()), "hybrid serving: first-step logits not finite")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def check_dense_configs():
@@ -1654,6 +1760,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     time_cpu_draw(ssm_cfg)
 
+    # -- phase 3m: the hybrid serving path at full width ---------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_hyb = check_hybrid_serving(device)
+
     # -- phase 3l: gemma3-4b and nemotron-4-15b at full width -----------------
     dense_summary = check_dense_configs()
     print(f"[dense-summary] {json.dumps(dense_summary)}")
@@ -1701,6 +1812,19 @@ def main() -> int:
     check(launch_counts["ssm_scan"] > 0, "the card's ssm parity run skipped the kernel")
     check(rel <= 1e-4, f"ssm serving path: first-step logits differ by {rel} relative (> 1e-4)")
     check(tok_card == tok_cpu, "ssm serving path: card and CPU greedy tokens differ")
+
+    # -- phase 4h: the card against the CPU on the hybrid serving path -------
+    reset_launch_counts()
+    (lg_cpu, tok_cpu), (lg_card, tok_card) = serve_parity(
+        HYBRID_ARCH, HYBRID_PARITY_LEN, HYBRID_PARITY_GEN, torch.device("cpu"), device)
+    rel = float((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max())
+    print(f"[parity-serve-hybrid] launches on the card={dict(launch_counts)} "
+          f"logits max |card - cpu| / max |cpu| = {rel} tokens cpu={tok_cpu} cuda={tok_card}")
+    check(launch_counts["ssm_scan"] > 0 and not launch_counts.get("flash_attention"),
+          "the card's hybrid parity run skipped the scan kernel or launched flash")
+    check(rel <= 1e-4, f"hybrid serving path: first-step logits differ by {rel} relative "
+                       f"(> 1e-4)")
+    check(tok_card == tok_cpu, "hybrid serving path: card and CPU greedy tokens differ")
 
     # -- phase 4e: the card against the CPU on the population path ----------
     (l_cpu, h_cpu), (l_card, h_card) = same_start_population(torch.device("cpu"), device)
@@ -1786,7 +1910,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:49",
-        "launches": counts_ssm["ssm_scan"],
+        "launches": counts_ssm["ssm_scan"] + counts_hyb["ssm_scan"],
         "max_abs_err": max_err_scan,
         "ms": scan_main["ms"],
         "plain_ms": scan_main["plain_ms"],

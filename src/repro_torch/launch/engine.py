@@ -2,7 +2,7 @@
 
 The trained global model θ̃ is what e-health institutions serve back to
 devices and clinicians. This is the port of ``repro/launch/engine.py`` for
-the dense and ssm families. Its executors are Python closures cached per shape
+the dense, ssm and hybrid families. Its executors are Python closures cached per shape
 bucket under the reference's keys, as the reference caches one jitted
 program per bucket; ``compile_counts`` reports the caches' sizes under the
 reference's names.
@@ -13,6 +13,9 @@ reference's names.
   block of a prompt builds its own caches and attends within itself
   (``fresh_cache``); when it is longer than ``BLOCKWISE_THRESHOLD`` (2048)
   its attention goes through the hand-written flash kernel on the card.
+  The hybrid family's ring-buffer KV caches (``_attn_ring_len``) take
+  blocks only into ring slots not yet written; past the ring's edge the
+  prompt goes one token at a time.
   Only the block's last position is unembedded: the engine samples from it
   alone, and at gemma3's V = 262144 the full [B, S, V] logits of a 4096
   token block would take 8.6 GB.
@@ -21,7 +24,8 @@ reference's names.
   cache write drops), with ONE host sync per block, when the scheduler
   collects the block's tokens.
 * **insert** — continuous batching: one executor copies a prefilled
-  group's rows of every cache group (``"kv"``, ``"ssm"``) into freed decode
+  group's rows of every cache group (``"kv"``, ``"ssm"``; the hybrid
+  family has both, stacked over super-blocks and layers) into freed decode
   slots; pad rows carry ``dst == max_batch`` and are dropped.
 * **spec** (opt-in via ``spec_gamma``, dense family) — self-speculative
   decoding: each round drafts γ tokens with the first ``spec_draft_layers``
@@ -233,6 +237,8 @@ class ServeEngine:
                 toks = []
                 for _ in range(block):
                     # parked slots write at cache_len: out of range -> dropped
+                    # (a hybrid ring takes it at cache_len mod ring, a column
+                    # of the parked row's own ring)
                     widx = torch.where(active, pos, cache_len)
                     logits, caches = T.decode_step(cfg, params, tok, caches, widx)
                     nxt = sample_token(logits[:, -1], gen, temperature)
@@ -333,6 +339,14 @@ class ServeEngine:
             fn = self._harvest_fns[key] = serve_harvest
         return fn
 
+    def _attn_ring_len(self, cache_len: int) -> Optional[int]:
+        """The hybrid family's ring length, ``min(cache_len, window)``; None
+        for caches that are not rings."""
+        cfg = self.cfg
+        if cfg.family == "hybrid" and cfg.sliding_window:
+            return min(cache_len, cfg.sliding_window)
+        return None
+
     def _cache_axis(self, B: int, cache_len: int, name: str):
         """Which axis of each cache leaf carries logical axis ``name`` (the
         leaves are layer-stacked, so it is NOT 0)."""
@@ -430,6 +444,7 @@ class ServeEngine:
             toks[i] = r.prompt
         toks[len(group):] = toks[0]  # pad rows replay request 0; discarded
         toks_dev = torch.from_numpy(toks).to(self.device)
+        ring = self._attn_ring_len(cache_len)
         idx, tok, caches = 0, None, None
         harvest_p = 0
         if self._prefix_enabled():
@@ -440,6 +455,13 @@ class ServeEngine:
                 harvest_p = p
         while idx < S:
             blk = min(_pow2_at_most(S - idx), self.max_prefill_block)
+            if ring is not None:
+                # ring-buffered kv (hybrid): blocks may only fill ring slots
+                # not yet written. Past the ring's edge a multi-token write
+                # would evict keys still inside the window of the block's own
+                # early queries (the sequential semantics evict ONE position
+                # a token), so the wrapped tail goes one token at a time.
+                blk = min(blk, _pow2_at_most(ring - idx)) if idx < ring else 1
             first = caches is None
             fn = self._prefill_fn(Bp, blk, first, cache_len)
             tb = toks_dev[:, idx: idx + blk]

@@ -23,6 +23,11 @@ Runs on the card unless ``--device cpu`` is given:
       --prefix-cache --cache-dtype bf16 --max-batch 2
   PYTHONPATH=src python -m repro_torch.launch.loadgen --device cpu --arch gemma3-1b \\
       --requests 20 --rate 20 --seed 0 --prefix-cache
+  PYTHONPATH=src python -m repro_torch.launch.loadgen --device cpu --arch zamba2-2.7b \\
+      --requests 8 --rate 20 --prompt-len 40
+
+The prefix cache and speculation serve the dense family only: a recurrent
+state can be neither shared by prompt head nor rolled back.
 """
 from __future__ import annotations
 

@@ -5,6 +5,8 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch falcon-mamba-7b --full --batch 2 --prompt-len 4096 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch zamba2-2.7b --full --batch 2 --prompt-len 2080 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch gemma3-1b --full --batch 2 --prompt-len 4096 --gen 32 --spec-gamma 4
 
 Takes the flags of ``repro_torch.launch.serve`` (``--spec-gamma``,

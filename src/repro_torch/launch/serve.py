@@ -10,6 +10,8 @@ card unless ``--device cpu`` is given.
       --batch 2 --prompt-len 4096 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --full \
       --batch 2 --prompt-len 4096 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --full \
+      --batch 2 --prompt-len 2080 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \
       --batch 2 --prompt-len 4096 --gen 32 --spec-gamma 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch gemma3-1b \

@@ -1,13 +1,15 @@
-"""Selective state-space blocks, Mamba-1 (falcon-mamba) (``repro/models/ssm.py``).
+"""Selective state-space blocks: Mamba-1 (falcon-mamba) and Mamba-2 (zamba2)
+(``repro/models/ssm.py``).
 
 Prefill runs the recurrence h_t = a_t ⊙ h_{t−1} + b_t chunk by chunk: the
 reference's ``lax.scan`` over chunks is a loop here, and each chunk's
 recurrence goes through ``kernels/ops.py::ssm_scan``, so a CUDA tensor takes
 the hand-written scan kernel and a CPU tensor its sequential plain version.
-Only the chunk's states [B, K, d_inner, N] exist at a time, never the whole
-history. Decode is one recurrence step on the carried state (K = 1).
-
-Mamba-2 (zamba2's SSD heads, ``ssm_version == 2``) raises "not ported yet".
+Only the chunk's states exist at a time, never the whole history: [B, K,
+d_inner, N] for Mamba-1, [B, K, H, P, N] for Mamba-2, whose per-head scalar
+decay is broadcast over P·N as the reference broadcasts it (the scan folds
+H·P·N into channels). Decode is one recurrence step on the carried state
+(K = 1).
 """
 from __future__ import annotations
 
@@ -25,33 +27,39 @@ from repro_torch.models.quant import dequantize_rows, is_int8, quantize_rows
 CHUNK = 256
 
 
-def _require_mamba1(cfg: ModelConfig) -> None:
-    if cfg.ssm_version != 1:
-        raise NotImplementedError(f"Mamba-{cfg.ssm_version} (ssm_version={cfg.ssm_version}) "
-                                  "is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Specs
 # ---------------------------------------------------------------------------
 
 
 def mamba_specs(cfg: ModelConfig) -> Dict[str, L.Spec]:
-    _require_mamba1(cfg)
     d = cfg.d_model
     d_in = cfg.ssm_expand * d
     N = cfg.ssm_state
     conv = cfg.ssm_conv
-    dt_rank = max(1, d // 16)
+    if cfg.ssm_version == 1:
+        dt_rank = max(1, d // 16)
+        return {
+            "w_in": L.Spec((d, 2 * d_in), ("embed", "ssm_inner")),
+            "conv_w": L.Spec((conv, d_in), ("conv", "ssm_inner"), "normal", 0.5),
+            "conv_b": L.Spec((d_in,), ("ssm_inner",), "zeros"),
+            "w_bcdt": L.Spec((d_in, 2 * N + dt_rank), ("ssm_inner", None)),
+            "w_dt": L.Spec((dt_rank, d_in), (None, "ssm_inner"), "normal", 0.1),
+            "dt_bias": L.Spec((d_in,), ("ssm_inner",), "zeros"),
+            "a_log": L.Spec((d_in, N), ("ssm_inner", "ssm_state"), "zeros"),
+            "d_skip": L.Spec((d_in,), ("ssm_inner",), "ones"),
+            "w_out": L.Spec((d_in, d), ("ssm_inner", "embed")),
+        }
+    # mamba2 (SSD): scalar decay per head
+    H = d_in // cfg.ssm_headdim
     return {
-        "w_in": L.Spec((d, 2 * d_in), ("embed", "ssm_inner")),
-        "conv_w": L.Spec((conv, d_in), ("conv", "ssm_inner"), "normal", 0.5),
-        "conv_b": L.Spec((d_in,), ("ssm_inner",), "zeros"),
-        "w_bcdt": L.Spec((d_in, 2 * N + dt_rank), ("ssm_inner", None)),
-        "w_dt": L.Spec((dt_rank, d_in), (None, "ssm_inner"), "normal", 0.1),
-        "dt_bias": L.Spec((d_in,), ("ssm_inner",), "zeros"),
-        "a_log": L.Spec((d_in, N), ("ssm_inner", "ssm_state"), "zeros"),
-        "d_skip": L.Spec((d_in,), ("ssm_inner",), "ones"),
+        "w_in": L.Spec((d, 2 * d_in + 2 * N + H), ("embed", "ssm_inner")),
+        "conv_w": L.Spec((conv, d_in + 2 * N), ("conv", "ssm_inner"), "normal", 0.5),
+        "conv_b": L.Spec((d_in + 2 * N,), ("ssm_inner",), "zeros"),
+        "dt_bias": L.Spec((H,), (None,), "zeros"),
+        "a_log": L.Spec((H,), (None,), "zeros"),
+        "d_skip": L.Spec((H,), (None,), "ones"),
+        "norm": L.Spec((d_in,), ("ssm_inner",), "ones"),
         "w_out": L.Spec((d_in, d), ("ssm_inner", "embed")),
     }
 
@@ -63,16 +71,24 @@ def mamba_state_specs(cfg: ModelConfig, batch: int, dtype=torch.float32):
     quantized on every state write and dequantized on read (the recurrence
     itself always runs in f32).
     """
-    _require_mamba1(cfg)
     d_in = cfg.ssm_expand * cfg.d_model
     N = cfg.ssm_state
     conv = cfg.ssm_conv
-    shapes = [CacheSpec((batch, conv - 1, d_in), dtype), CacheSpec((batch, d_in, N), dtype)]
-    axes = [("batch", None, "ssm_inner"), ("batch", "ssm_inner", "ssm_state")]
+    if cfg.ssm_version == 1:
+        shapes = [CacheSpec((batch, conv - 1, d_in), dtype), CacheSpec((batch, d_in, N), dtype)]
+        axes = [("batch", None, "ssm_inner"), ("batch", "ssm_inner", "ssm_state")]
+        scale_shapes = [(batch, conv - 1), (batch, d_in)]
+        scale_axes = [("batch", None), ("batch", "ssm_inner")]
+    else:
+        H = d_in // cfg.ssm_headdim
+        shapes = [CacheSpec((batch, conv - 1, d_in + 2 * N), dtype),
+                  CacheSpec((batch, H, cfg.ssm_headdim, N), dtype)]
+        axes = [("batch", None, "ssm_inner"), ("batch", None, None, "ssm_state")]
+        scale_shapes = [(batch, conv - 1), (batch, H, cfg.ssm_headdim)]
+        scale_axes = [("batch", None), ("batch", None, None)]
     if is_int8(dtype):
-        shapes += [CacheSpec((batch, conv - 1), torch.float32),
-                   CacheSpec((batch, d_in), torch.float32)]
-        axes += [("batch", None), ("batch", "ssm_inner")]
+        shapes += [CacheSpec(s, torch.float32) for s in scale_shapes]
+        axes += scale_axes
     return tuple(shapes), tuple(axes)
 
 
@@ -209,6 +225,58 @@ def mamba1_forward(params, x, cfg: ModelConfig, state: Optional[Tuple] = None):
     return out, new_state
 
 
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) forward — scalar decay per head
+# ---------------------------------------------------------------------------
+
+
+def mamba2_forward(params, x, cfg: ModelConfig, state: Optional[Tuple] = None):
+    """x: [B, T, D]. state: (conv_state, h [B, H, P, N]) for decode; None for
+    train/prefill."""
+    B, T, D = x.shape
+    d_in = cfg.ssm_expand * D
+    N = cfg.ssm_state
+    P = cfg.ssm_headdim
+    H = d_in // P
+
+    proj = torch.matmul(x, params["w_in"].to(x.dtype))
+    z = proj[..., :d_in]
+    xBC = proj[..., d_in: 2 * d_in + 2 * N]
+    dt_in = proj[..., 2 * d_in + 2 * N:]  # [B, T, H]
+    conv_state, h_read = _state_unpack(state) if state is not None else (None, None)
+    xBC, new_conv = _causal_conv(xBC, params["conv_w"], params["conv_b"], conv_state)
+    xBC = F.silu(xBC)
+    xs = xBC[..., :d_in].reshape(B, T, H, P)
+    Bm = xBC[..., d_in: d_in + N]
+    Cm = xBC[..., d_in + N:]
+
+    dt = softplus(dt_in.float() + params["dt_bias"].float())  # [B, T, H]
+    A = -torch.exp(params["a_log"].float())  # [H]
+    h = (h_read.float() if state is not None
+         else torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device))
+    K = min(CHUNK, T)  # T=1 decode: one recurrence step, not a padded CHUNK
+    nchunk = (T + K - 1) // K
+    pad = nchunk * K - T
+    xsf = xs.float()
+    chunks = [_to_chunks(v, nchunk, pad, K) for v in (dt, xsf, Bm.float(), Cm.float())]
+    ys = []
+    for dtc, xcc, Bc, Cc in zip(*chunks):  # [B,K,H] [B,K,H,P] [B,K,N] [B,K,N]
+        # the per-head decay broadcast over [P, N]; ops.ssm_scan makes it real
+        ac = torch.exp(dtc * A)[..., None, None].expand(dtc.shape + (P, N))
+        bxc = dtc[..., None, None] * xcc[..., None] * Bc[:, :, None, None, :]
+        hs, h = _chunk_recurrence(ac, bxc, h)
+        ys.append(torch.einsum("bkhpn,bkn->bkhp", hs, Cc))
+    y = torch.stack(ys, 1).reshape(B, nchunk * K, H, P)[:, :T]
+    y = y + params["d_skip"].float()[None, None, :, None] * xsf
+    y = y.reshape(B, T, d_in)
+    y = y * F.silu(z.float())
+    y = L.rmsnorm({"scale": params["norm"]}, y.to(x.dtype))
+    out = torch.matmul(y, params["w_out"].to(x.dtype))
+    new_state = _state_pack(state, new_conv, h) if state is not None else None
+    return out, new_state
+
+
 def mamba_forward(params, x, cfg: ModelConfig, state=None):
-    _require_mamba1(cfg)
-    return mamba1_forward(params, x, cfg, state)
+    if cfg.ssm_version == 1:
+        return mamba1_forward(params, x, cfg, state)
+    return mamba2_forward(params, x, cfg, state)

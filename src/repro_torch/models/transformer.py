@@ -1,4 +1,4 @@
-"""Model assembly, the dense and ssm families (``repro/models/transformer.py``).
+"""Model assembly, the dense, ssm and hybrid families (``repro/models/transformer.py``).
 
 Layer parameters stay stacked along a leading layer dimension, so the
 reference's parameter tree maps onto the port's leaf for leaf; where the
@@ -9,13 +9,16 @@ flash kernel takes at run time.
 Decode caches are stacked the same way and written IN PLACE through the
 per-layer views (the reference donates them): ``decode_step`` returns the
 cache tensors it was given, updated — the dense family's KV caches under
-``"kv"``, the ssm family's (conv, h) states under ``"ssm"``.
-``draft_decode_step`` runs the first layers of the dense stack alone, the
-self-speculative draft. The MoE, hybrid, audio and VLM families raise "not
-ported yet".
+``"kv"``, the ssm family's (conv, h) states under ``"ssm"``, and the hybrid
+family's (zamba2) both: the Mamba-2 states of every layer under ``"ssm"``
+and, under ``"kv"``, one ring-buffer KV cache a super-block for its shared
+attention block. ``draft_decode_step`` runs the first layers of the dense
+stack alone, the self-speculative draft. The MoE, audio and VLM families
+raise "not ported yet".
 
 The train path (``forward``, ``backbone_forward``, ``lm_loss``) runs the
-dense family under autograd; ``remat`` wraps each layer, and each chunk of
+dense family under autograd (the ssm and hybrid train paths are not ported
+yet); ``remat`` wraps each layer, and each chunk of
 the fused head + cross-entropy, in ``torch.utils.checkpoint`` where the
 reference has ``jax.checkpoint``.
 """
@@ -35,7 +38,7 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.mlp import mlp_forward, mlp_specs
 from repro_torch.models.quant import is_int8
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -137,15 +140,57 @@ def dense_stack_decode(params, x, positions, cfg, windows, caches, cache_index,
     return x, caches
 
 
-def mamba_stack_decode(params, x, cfg, states):
+def mamba_stack_decode(params, x, cfg, states, layers=None):
     """The reference's ``lax.scan`` over Mamba layers as a loop; each layer's
-    new (conv, h) state is written into its slice of the stacked states."""
-    for i in range(cfg.num_layers):
+    new (conv, h) state is written into its slice of the stacked states.
+    ``layers`` (a range of stack indices, default all) runs a slice of the
+    stack, as the hybrid family's super-blocks do."""
+    for i in layers if layers is not None else range(cfg.num_layers):
         st = tuple(s[i] for s in states)
         x, new_st = mamba_block(layer_params(params, i), x, cfg, state=st)
         for dst, src in zip(st, new_st):
             dst.copy_(src)
     return x, states
+
+
+def hybrid_decode(cfg, params, x, positions, caches, index):
+    """``_hybrid_decode``: super-blocks of ``hybrid_attn_every`` Mamba layers,
+    each followed by the ONE shared attention + MLP block, which writes its
+    own super-block's slice of the ``"kv"`` stack; the layers past the last
+    whole super-block run without it. With a sliding window the KV caches
+    are rings of ``min(cache_len, window)`` slots: a write lands at
+    ``index mod ring`` and keeps its true position, which the window mask
+    reads. All caches are written in place."""
+    period = cfg.hybrid_attn_every or cfg.num_layers
+    n_sb = cfg.num_layers // period
+    win = cfg.sliding_window or 0
+    ring = caches["kv"][0].shape[2]
+    if not win:
+        widx = index
+    elif isinstance(index, torch.Tensor):
+        widx = torch.remainder(index, ring)
+    else:
+        widx = int(index) % ring
+    ssm, kv = caches["ssm"], caches["kv"]
+    for i in range(n_sb):
+        x, _ = mamba_stack_decode(params["layers"], x, cfg, ssm,
+                                  range(i * period, (i + 1) * period))
+        x = shared_attn_decode(cfg, params["shared_attn"], x, positions,
+                               tuple(c[i] for c in kv), widx, win)
+    x, _ = mamba_stack_decode(params["layers"], x, cfg, ssm,
+                              range(n_sb * period, cfg.num_layers))
+    return x, caches
+
+
+def shared_attn_decode(cfg, p, x, positions, cache, write_idx, window: int):
+    """``_shared_attn_decode``: the shared block's attention (never the
+    fresh-cache route, as in the reference) and MLP over ``cache``."""
+    h = L.apply_norm(cfg.norm, p["norm1"], x)
+    a, _ = A.gqa_forward(p["attn"], h, positions, cfg, window=window, kv_cache=cache,
+                         cache_index=write_idx)
+    x = x + a
+    h = L.apply_norm(cfg.norm, p["norm2"], x)
+    return x + mlp_forward(p["mlp"], h, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -172,10 +217,12 @@ def layer_windows(cfg: ModelConfig, n_layers: int, force_window: bool = False) -
 def model_specs(cfg: ModelConfig) -> Dict:
     _require_ported(cfg)
     d = cfg.d_model
-    kind = "mamba" if cfg.family == "ssm" else "attn_mlp"
+    kind = "attn_mlp" if cfg.family == "dense" else "mamba"
     s: Dict = {"embed": L.embed_specs(cfg.vocab_size, d),
-               "layers": stack_specs(cfg, cfg.num_layers, kind),
-               "final_norm": L.norm_specs(cfg.norm, d)}
+               "layers": stack_specs(cfg, cfg.num_layers, kind)}
+    if cfg.family == "hybrid":
+        s["shared_attn"] = block_specs(cfg, "attn_mlp")  # zamba2 shared block
+    s["final_norm"] = L.norm_specs(cfg.norm, d)
     if not cfg.tie_embeddings:
         s["head"] = L.dense_specs(d, cfg.vocab_size, (None, "vocab"), scale=0.02)
     return s
@@ -302,20 +349,29 @@ def make_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch
     ``dtype=torch.int8`` selects the quantized layout (extra f32 scale
     leaves; see models/quant.py). SSM states stay f32 for every non-int8
     dtype (the recurrence is precision-sensitive) and take the quantized
-    layout under int8, as the reference's do.
+    layout under int8, as the reference's do. The hybrid family has both
+    groups: ``"ssm"`` stacked over every layer, ``"kv"`` over the
+    super-blocks, at ring length ``min(cache_len, sliding_window)``.
     """
     _require_ported(cfg)
-    if cfg.family == "ssm":
-        group = "ssm"
-        shapes, axes = SSM.mamba_state_specs(cfg, batch,
-                                             dtype if is_int8(dtype) else torch.float32)
-    else:
-        group = "kv"
-        shapes, axes = A.make_kv_cache_specs(cfg, batch, cache_len, dtype)
-    Lx = cfg.num_layers
-    stacked = tuple(A.CacheSpec((Lx,) + tuple(s.shape), s.dtype) for s in shapes)
-    st_axes = tuple(("stack",) + a for a in axes)
-    return {group: stacked}, {group: st_axes}
+
+    def stacked(n, specs):
+        shapes, axes = specs
+        return (tuple(A.CacheSpec((n,) + tuple(s.shape), s.dtype) for s in shapes),
+                tuple(("stack",) + a for a in axes))
+
+    groups = {}
+    if cfg.family in ("ssm", "hybrid"):
+        sdtype = dtype if is_int8(dtype) else torch.float32
+        groups["ssm"] = stacked(cfg.num_layers, SSM.mamba_state_specs(cfg, batch, sdtype))
+    if cfg.family == "dense":
+        groups["kv"] = stacked(cfg.num_layers,
+                               A.make_kv_cache_specs(cfg, batch, cache_len, dtype))
+    elif cfg.family == "hybrid":
+        n_sb = cfg.num_layers // (cfg.hybrid_attn_every or cfg.num_layers)
+        ring = min(cache_len, cfg.sliding_window or cache_len)
+        groups["kv"] = stacked(n_sb, A.make_kv_cache_specs(cfg, batch, ring, dtype))
+    return {k: v[0] for k, v in groups.items()}, {k: v[1] for k, v in groups.items()}
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch.bfloat16,
@@ -349,14 +405,25 @@ def decode_hidden(cfg: ModelConfig, params, tokens, caches, index, force_window=
     from this, instead of the full [B, S, V] logits. The ssm family ignores
     ``index`` and ``fresh_cache``, as the reference does: its state is the
     whole past, and a parked slot's state advances until the slot is
-    refilled."""
+    refilled. The hybrid family ignores ``fresh_cache`` and ``force_window``
+    (its shared block always attends over its ring at the config's window),
+    and takes a vector ``index`` with single tokens only."""
     _require_ported(cfg)
     B, S = tokens.shape
+    vector = isinstance(index, torch.Tensor) and index.dim() == 1
+    if vector and S != 1 and cfg.family == "hybrid":
+        # ring-buffer attention caches wrap write positions with a
+        # remainder; the vector multi-token write drops instead of
+        # wrapping, so spans crossing the ring edge would be lost
+        raise ValueError("hybrid ring caches take single-token vector writes only")
     x = L.embed(params["embed"], tokens)
     x = x * _embed_scale(cfg, x.dtype)
     if cfg.family == "ssm":
         x, new_ssm = mamba_stack_decode(params["layers"], x, cfg, caches["ssm"])
         new_caches = {"ssm": new_ssm}
+    elif cfg.family == "hybrid":
+        positions = decode_positions(index, B, S, x.device)
+        x, new_caches = hybrid_decode(cfg, params, x, positions, caches, index)
     else:
         positions = decode_positions(index, B, S, x.device)
         windows = layer_windows(cfg, cfg.num_layers, force_window)

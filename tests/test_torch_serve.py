@@ -95,14 +95,14 @@ def test_model_config_and_registry_match_reference():
     tf = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     assert tf == jf
     assert list_configs() == ["falcon-mamba-7b", "gemma3-1b", "gemma3-4b", "nemotron-4-15b",
-                              "paper-cnn", "paper-lstm", "stablelm-1.6b"]
+                              "paper-cnn", "paper-lstm", "stablelm-1.6b", "zamba2-2.7b"]
     for name in list_configs():
         for smoke in (False, True):
             got, want = get_config(name, smoke), jax_get_config(name, smoke)
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
             assert got.param_count() == want.param_count()
             assert got.resolved_head_dim == want.resolved_head_dim
-    for name in ("deepseek-v3-671b", "zamba2-2.7b", "whisper-medium"):
+    for name in ("deepseek-v3-671b", "grok-1-314b", "whisper-medium"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(name)
     with pytest.raises(KeyError, match="unknown arch"):
@@ -601,7 +601,7 @@ def test_serve_cli_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("flags", [["--arch", "whisper-medium"], ["--arch", "qwen2-vl-72b"],
-                                   ["--arch", "deepseek-v3-671b"], ["--arch", "zamba2-2.7b"]])
+                                   ["--arch", "deepseek-v3-671b"], ["--arch", "grok-1-314b"]])
 def test_serve_cli_refuses_unported(flags, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(["--device", "cpu"] + flags)

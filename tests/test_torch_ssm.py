@@ -10,7 +10,8 @@ apart, as the kernel does). ``ops.ssm_scan``, ``chunked_linear_recurrence``,
 int8 state) are held against the reference's within 1e-5; params come from
 the reference's ``init_params`` through ``params_from_numpy``. The CUDA
 kernel against the plain version, bit for bit, runs only on the card
-(``gpu`` marker).
+(``gpu`` marker). Mamba-2 (zamba2's SSD heads) is held in
+``tests/test_torch_hybrid.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -244,14 +245,6 @@ def test_state_specs_match_reference():
         js = JS.mamba_specs(jcfg)[k]
         assert (spec.shape, spec.axes, spec.init, spec.scale) == (js.shape, js.axes, js.init,
                                                                   js.scale)
-
-
-def test_mamba2_is_not_ported_yet():
-    cfg = get_config("falcon-mamba-7b", True).replace(ssm_version=2)
-    for fn in (lambda: S.mamba_specs(cfg), lambda: S.mamba_state_specs(cfg, 1),
-               lambda: S.mamba_forward({}, torch.zeros(1, 1, cfg.d_model), cfg)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            fn()
 
 
 # ---------------------------------------------------------------------------
