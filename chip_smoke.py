@@ -47,7 +47,8 @@ Phases, in order; any failure raises and the script exits nonzero:
   4f. the card against the CPU on the LLM path: 2 rounds at gemma3-1b's
      smoke widths (--pods 2, k=0.25, b=128) from the same CPU-drawn model
      and token stream, per-step losses within rtol 1e-3;
-  5. a {"kernels": [...]} summary line, the nvidia-smi line, and last the
+  5. a {"kernels": [...]} summary line (the compress kernels, flash, the
+     scan and its backward), the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 
 The LLM-scale federation (phases 2, 2b and after 3h):
@@ -192,13 +193,43 @@ and 4d respectively):
      then 16 single-token steps past the ring's edge) and 8 new tokens:
      first-step logits within 1e-4 of the largest |logit|, equal greedy
      tokens, scan launches and no flash launch on the card.
+
+Training the ssm and hybrid families (after phase 2d, 3l and 4h
+respectively):
+  2e. the scan's backward kernel against its plain version on the card,
+     bit for bit (torch.equal): zamba2-2.7b's θ0 chunk [2, 64, 327680]
+     (∂h_last nonzero and zero) and a tower's [2, 32, 327680],
+     falcon-mamba-7b's θ0 chunk [2, 64, 131072], T = 1, T = 37 (not a
+     multiple of the unroll), C = 200 (not a multiple of 256), a = 1 with
+     b = 0, and a = 1e-30; each also as SSMScan's gradient through
+     torch.autograd.grad; the kernel's and the plain version's times
+     beside the bytes bound;
+  3n. ``repro_torch.launch.train --arch zamba2-2.7b --steps 20
+     --compression-k 0.25 --quantization 128 --pods 2`` at published widths
+     (54 Mamba-2 layers, d 2560, 80 SSD heads of 64 x 64, N 64, V 32000;
+     arXiv:2411.15242), --batch 2 --seq 64, random weights, the launch
+     counters zeroed just before and read just after: exactly the scan,
+     backward-scan and compress launches pinned in TRAIN_CELLS
+     (``train_launches``) and no other kernel (no flash), finite losses
+     falling within every exchange interval, steps/s and peak device
+     memory; then one more round timed and profiled for the device's busy
+     share;
+  3o. the same for falcon-mamba-7b at its published widths (d 4096,
+     d_inner 8192, N 16, V 65024; arXiv:2410.05355) with depth cut from 64
+     to FALCON_TRAIN_LAYERS layers, built as the CLI builds it
+     (``llm_hybrid(n_tower=1, remat=False)``, ``init_llm_params`` from the
+     seed on the card) and run through ``LLMRoundRunner.run_fixed``;
+  4i. the card against the CPU at zamba2-2.7b's and falcon-mamba-7b's smoke
+     widths: 2 fixed rounds (--pods 2, k = 0.25, b = 128) from one
+     CPU-drawn model and one token stream, per-step losses within rtol
+     1e-3, scan and backward-scan launches on the card.
+Phase 3d also prints the device bytes allocated at its start.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
 import dataclasses
-import gc
 import io
 import json
 import math
@@ -208,6 +239,7 @@ import resource
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -239,16 +271,18 @@ from repro_torch.kernels.compress import fused_compress, stack_rows  # noqa: E40
 from repro_torch.kernels.compress_cases import EDGE_WIDTHS, edge_case_rows, same_values  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
                                                  flash_attention_ref)
-from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref  # noqa: E402
-from repro_torch.launch import loadgen, serve  # noqa: E402
+from repro_torch.kernels.ssm_scan import (SSMScan, ssm_scan_bwd_cuda,  # noqa: E402
+                                          ssm_scan_bwd_ref, ssm_scan_cuda, ssm_scan_ref)
+from repro_torch.launch import loadgen, profile_train, serve  # noqa: E402
 from repro_torch.launch.engine import ServeEngine  # noqa: E402
 from repro_torch.launch.timing import device_ms  # noqa: E402
 from repro_torch.data.synthetic import llm_batch_fn  # noqa: E402
-from repro_torch.launch.steps import LLMRoundRunner  # noqa: E402
+from repro_torch.launch.steps import LLMRoundRunner, init_llm_params  # noqa: E402
 from repro_torch.launch.train import (build_llm, parse_args, population_rounds,  # noqa: E402
                                       run_ehealth, run_llm, run_population_cli, setup_ehealth)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.split_model import llm_hybrid  # noqa: E402
 from repro_torch.models.ssm import CHUNK as SSM_CHUNK  # noqa: E402
 
 # Data-sheet rates, dense, at the full power limit: (memory B/s, fp32 FLOP/s
@@ -363,6 +397,34 @@ LLM_ADAPTIVE_ARGV = ["--arch", "gemma3-1b", "--adaptive", "--steps", "16", "--ma
 # the head's rows of that message: [d_model, vocab] (phases 2 and 2b)
 HEAD_SHAPE = (1152, 262144)
 LLM_GROUPS = 4  # row groups of one gemma3-1b exchange message
+# the scan's backward kernel against its plain version (phase 2e): (name,
+# (B, T, C), the decay a, ∂h_last nonzero); the first is the hybrid
+# training path's θ0 chunk (zamba2-2.7b: H·P·N = 327680 channels, 64 tokens)
+SCAN_BWD_CASES = (
+    ("zamba2-2.7b theta0 chunk", (2, 64, 327680), "sigmoid", True),
+    ("zamba2-2.7b theta0 chunk, zero d_h_last", (2, 64, 327680), "sigmoid", False),
+    ("zamba2-2.7b tower chunk", (2, 32, 327680), "sigmoid", True),
+    ("falcon-mamba-7b theta0 chunk", (2, 64, 131072), "sigmoid", True),
+    ("T = 1", (2, 1, 131072), "sigmoid", True),
+    ("T = 37, not a multiple of the unroll; C = 7", (3, 37, 7), "sigmoid", True),
+    ("C = 200, not a multiple of 256", (2, 300, 200), "sigmoid", False),
+    ("a = 1 with b = 0", (2, 45, 300), "one", True),
+    ("strong decay, a = 1e-30", (2, 64, 1000), "strong", True),
+)
+# the ssm and hybrid training cells (phases 3n, 3o): the reference CLI's
+# --batch 2 --seq 64 and fixed rounds at published widths, random weights
+TRAIN_ARGV = ["--steps", "20", "--compression-k", "0.25", "--quantization", "128", "--pods", "2"]
+# falcon-mamba-7b's depth in phase 3o, cut from 64 layers: one pod of the
+# full depth (7.8e9 fp32 parameters, 31 GB) does not fit beside its
+# gradients, its stale θ0 and a second pod
+FALCON_TRAIN_LAYERS = 16
+# arch -> (θ0's Mamba layers, the exchange message's row groups, the run's
+# launches), pinned from launch/steps.py's structure (train_launches)
+TRAIN_CELLS = {
+    "zamba2-2.7b": (54, 7, {"ssm_scan": 4440, "ssm_scan_bwd": 4400, "fused_compress": 70}),
+    "falcon-mamba-7b": (FALCON_TRAIN_LAYERS, 5,
+                        {"ssm_scan": 1400, "ssm_scan_bwd": 1360, "fused_compress": 50}),
+}
 # checkpoints of phase 3g, inside the checkout's ignored build directory
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 
@@ -666,6 +728,65 @@ def check_scan_kernel(device, name):
     return results[SCAN_CASES[0][0], SCAN_CASES[0][1]], max_err
 
 
+def scan_bwd_bound_ms(shape, bw, flops):
+    """Least time for one backward scan (fp32): a, ∂hs, ∂h_last, h0 and
+    hs[:, :T-1] read once, ∂a, ∂b and ∂h0 written once, against 3
+    operations a step. Returns (bound_ms, bound_by)."""
+    B, T, C = shape
+    t_bytes = 4 * (B * T * C * 4 + B * max(T - 1, 0) * C + 3 * B * C) / bw * 1e3
+    t_ops = 3 * B * T * C / flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_scan_bwd_kernel(device, name):
+    """Phase 2e: the backward scan kernel against its plain version, bit for
+    bit, on every case, directly and as ``SSMScan``'s gradient through
+    ``torch.autograd.grad``; timed beside the plain version and the bound.
+    Returns the comparison at the hybrid training path's θ0 chunk and the
+    largest difference seen (0 when all are bit-identical)."""
+    bw, flops32 = card_rates(name)
+    results, max_err = {}, 0.0
+    for case, shape, decay, with_last in SCAN_BWD_CASES:
+        B, T, C = shape
+        g = torch.Generator(device=device).manual_seed(sum(shape) + with_last)
+        a = {"sigmoid": lambda: torch.sigmoid(torch.randn(shape, generator=g, device=device)),
+             "one": lambda: torch.ones(shape, device=device),
+             "strong": lambda: torch.full(shape, 1e-30, device=device)}[decay]()
+        b = (torch.zeros(shape, device=device) if decay == "one"
+             else torch.randn(shape, generator=g, device=device))
+        h0 = torch.randn((B, C), generator=g, device=device)
+        hs = ssm_scan_ref(a, b, h0)[0]
+        d_hs = torch.randn(shape, generator=g, device=device)
+        d_last = (torch.randn((B, C), generator=g, device=device) if with_last
+                  else torch.zeros((B, C), device=device))
+        got = ssm_scan_bwd_cuda(a, h0, hs, d_hs, d_last)
+        torch.cuda.synchronize()
+        want = ssm_scan_bwd_ref(a, h0, hs, d_hs, d_last)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) if x.numel() else 0.0 for x, y in zip(got, want))
+        max_err = max(max_err, err)
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"scan backward {case} {shape}: kernel differs from plain (max |diff| {err})")
+        leaves = [x.clone().requires_grad_() for x in (a, b, h0)]
+        auto = torch.autograd.grad(SSMScan.apply(*leaves), leaves, (d_hs, d_last))
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(auto, want)),
+              f"scan backward {case}: SSMScan's gradients on the card differ from plain")
+        del got, auto, leaves
+        ms = device_ms(lambda: ssm_scan_bwd_cuda(a, h0, hs, d_hs, d_last))
+        plain_ms = device_ms(lambda: ssm_scan_bwd_ref(a, h0, hs, d_hs, d_last), inner=2, reps=5)
+        bound, bound_by = scan_bwd_bound_ms(shape, bw, flops32)
+        res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": bound_by}
+        results[case] = res
+        print(f"[scan-bwd] {case}: shape={list(shape)} bit-identical (kernel and SSMScan's "
+              f"autograd) d_h_last={'nonzero' if with_last else 'zero'} kernel_ms={ms} "
+              f"plain_ms={plain_ms} bound_ms={bound} ({bound_by}) kernel/bound={ms / bound} "
+              f"library_ms=null (no single PyTorch call computes this function)")
+        del a, b, h0, hs, d_hs, d_last, want
+    return results[SCAN_BWD_CASES[0][0]], max_err
+
+
 def host_rss_bytes() -> int:
     """This process's resident set now."""
     with open("/proc/self/statm") as f:
@@ -910,7 +1031,6 @@ def check_hybrid_serving(device):
                                                               for x in t) for t in tokens),
           "hybrid serving tokens out of [0, V)")
     del report
-    gc.collect()
     torch.cuda.empty_cache()
     params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
     logits = first_step_logits(cfg, params, prompts, cache_len, args.cache_dtype)
@@ -920,7 +1040,6 @@ def check_hybrid_serving(device):
           f"{[t[0] for t in tokens]})")
     check(bool(torch.isfinite(logits).all()), "hybrid serving: first-step logits not finite")
     del params, logits
-    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
@@ -932,7 +1051,6 @@ def check_dense_configs():
     a decode step and peak device memory."""
     out = {}
     for arch in DENSE_ARCHS:
-        gc.collect()
         torch.cuda.empty_cache()
         argv = ["--arch", arch] + DENSE_SERVE_ARGV
         args = serve.parse_args(argv)
@@ -961,7 +1079,6 @@ def check_dense_configs():
                                             "peak_device_bytes", "init_s")}
         del report
         if arch == DENSE_SPEC_ARCH:
-            gc.collect()
             torch.cuda.empty_cache()
             reset_launch_counts()
             spec_report, spec_tokens = run_serve_cli(argv + ["--spec-gamma", "4"])
@@ -982,7 +1099,6 @@ def check_dense_configs():
                                  "ms_per_token": spec_report["ms_per_decode_step"]}
             del spec_report, spec_tokens
         del tokens
-    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -1549,11 +1665,11 @@ def check_llm_paths(device, bw, flops):
     return summary
 
 
-def same_start_llm(*devices):
-    """PARITY_ROUNDS fixed-cadence rounds of the LLM path at gemma3-1b's
+def same_start_llm(*devices, arch="gemma3-1b"):
+    """PARITY_ROUNDS fixed-cadence rounds of the LLM path at ``arch``'s
     smoke widths (--pods 2, k = 0.25, b = 128) on each device from one
     CPU-drawn model and the same token stream: the losses per device."""
-    args = parse_args(["--arch", "gemma3-1b", "--smoke", "--pods", "2", "--compression-k",
+    args = parse_args(["--arch", arch, "--smoke", "--pods", "2", "--compression-k",
                        "0.25", "--quantization", "128", "--device", "cpu"])
     cfg, model, init, _ = build_llm(args, torch.device("cpu"))
     out = []
@@ -1564,6 +1680,133 @@ def same_start_llm(*devices):
             args.q, args.lr, args.compression_k, args.quantization)
         out.append(torch.from_numpy(losses))
     return out
+
+
+def train_launches(args, layers: int, groups: int):
+    """The launches of a fixed-cadence LLM run at --batch 2 --seq 64 with one
+    tower layer a side (``llm_hybrid(n_tower=1)``), from launch/steps.py's
+    structure. Every pod-step runs the hospital's pass (θ0 and tower 1) and
+    the device's (θ0 and tower 2), each a forward then a backward through
+    ``layers`` + 1 Mamba layers, one scan chunk a layer (θ0's 64 tokens and
+    a tower's 32 are one chunk of at most 256): a scan and a backward scan
+    launch a layer and pass. Every exchange runs both towers without grad on
+    each pod (one scan launch each) and compresses the message with one
+    launch a row group."""
+    exchanges = (args.steps // args.p) * (args.p // args.q)
+    per_step = 2 * (layers + 1) * args.steps * args.pods
+    return {"ssm_scan": per_step + 2 * args.pods * exchanges, "ssm_scan_bwd": per_step,
+            "fused_compress": groups * exchanges}
+
+
+def busy_share(run):
+    """(device busy share, kernels a step, wall seconds, the 8 kernels with
+    the most device time and their ms) of ``run()``, which returns its
+    steps: timed on the host clock, then run again under torch.profiler,
+    whose Chrome trace gives the union of the device's kernel, copy and
+    memset intervals (``launch/profile_train.py``'s reading); the share is
+    that union over the unprofiled wall time."""
+    t0 = time.perf_counter()
+    steps = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        intervals = profile_train.device_intervals(path)
+    busy = profile_train.busy_us(intervals) / 1e6
+    kernels = sum(1 for cat, *_ in intervals if cat == "kernel")
+    by_name = {}
+    for _, kname, _, dur in intervals:
+        by_name[kname[:80]] = by_name.get(kname[:80], 0.0) + dur / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return busy / wall, kernels / steps, wall, top
+
+
+def check_train_cell(tag, device, args, cell, model=None, params=None, batch_fn=None,
+                     cli_argv=None):
+    """Phases 3n and 3o: fixed rounds of ``model`` at ``args``' cadence on
+    the card, the launch counters zeroed just before and read just after:
+    exactly the launches ``cell`` (an entry of TRAIN_CELLS) pins and no
+    other kernel (no flash); finite losses falling within every exchange
+    interval; steps/s, peak device memory. Through the CLI on ``cli_argv``
+    when it is given (the CLI's seed then draws the weights again
+    afterwards), else through ``LLMRoundRunner.run_fixed``. Then one more
+    round, timed and profiled, for the busy share."""
+    layers, groups, pinned = cell
+    want = train_launches(args, layers, groups)
+    check(want == pinned, f"{tag}: launches derived {want}, pinned {pinned}")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    if cli_argv is not None:
+        out, losses, _ = run_cli(cli_argv, run_llm)
+        torch.cuda.synchronize()
+        steps, wall_s = out["steps"], out["wall_s"]
+        peak = torch.cuda.max_memory_allocated()  # the CLI reset it after drawing the weights
+        _, model, params, batch_fn = build_llm(args, device)
+    else:
+        t0 = time.perf_counter()
+        params, losses = LLMRoundRunner(model, n_pods=args.pods).run_fixed(
+            params, batch_fn, args.steps, args.p, args.q, args.lr, args.compression_k,
+            args.quantization)
+        torch.cuda.synchronize()
+        steps, wall_s = len(losses), time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    counts = dict(launch_counts)
+    falls = interval_falls(args, None, losses)
+    print(f"[{tag}] launches={counts} (pinned {pinned}) steps={steps} wall_s={wall_s} "
+          f"steps/s={steps / wall_s} peak_device_bytes={peak} peak_device_GiB={peak / 2 ** 30} "
+          f"allocated before the run={before} losses={losses.tolist()} (first, last) step of "
+          f"each exchange interval: {falls}")
+    check(counts == pinned, f"{tag}: launches {counts}, expected {pinned} and no other kernel")
+    check(bool(np.isfinite(losses).all()), f"{tag}: non-finite loss")
+    check(falls and all(last < first for first, last in falls),
+          f"{tag}: the loss did not fall within every exchange interval: {falls}")
+    fn = LLMRoundRunner(model, n_pods=args.pods).round_fn(
+        args.p, args.q, args.compression_k, args.quantization, collect_stats=False)
+    lam = args.p // args.q
+    state = {"params": params}
+
+    def one_round():
+        state["params"], _ = fn(state["params"], batch_fn(0, lam), args.lr)
+        return args.p
+
+    busy, kernels, round_s, top = busy_share(one_round)
+    print(f"[{tag}] one more round: {round_s} s ({args.p / round_s} steps/s), device busy "
+          f"share {busy}, {kernels} kernels a step; device ms of the profiled round by kernel: "
+          f"{top}")
+    del state, params
+    return {"steps_per_s": steps / wall_s, "peak_device_bytes": peak, "busy_share": busy,
+            "kernels_per_step": kernels, "launches": counts,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+
+
+def check_ssm_training(device):
+    """Phases 3n (zamba2-2.7b at full width through the CLI) and 3o
+    (falcon-mamba-7b at its published widths, depth cut to
+    FALCON_TRAIN_LAYERS, through ``LLMRoundRunner`` as the CLI builds it)."""
+    summary = {}
+    argv = ["--arch", HYBRID_ARCH] + TRAIN_ARGV + ["--device", "cuda"]
+    summary[HYBRID_ARCH] = check_train_cell("train-hybrid", device, parse_args(argv),
+                                            TRAIN_CELLS[HYBRID_ARCH], cli_argv=argv)
+    torch.cuda.empty_cache()
+    arch = "falcon-mamba-7b"
+    args = parse_args(["--arch", arch] + TRAIN_ARGV + ["--device", "cuda"])
+    cfg = get_config(arch).replace(num_layers=FALCON_TRAIN_LAYERS)
+    model = llm_hybrid(cfg, n_tower=1, remat=False)
+    params = init_llm_params(torch.Generator(device=device).manual_seed(args.seed), model,
+                             n_pods=args.pods)
+    batch_fn = llm_batch_fn(cfg, args.batch, args.seq, n_pods=args.pods, seed=args.seed,
+                            device=device)
+    summary[arch] = check_train_cell("train-ssm", device, args, TRAIN_CELLS[arch], model, params,
+                                     batch_fn)
+    del params
+    torch.cuda.empty_cache()
+    return summary
 
 
 def main() -> int:
@@ -1622,6 +1865,9 @@ def main() -> int:
 
     # -- phase 2d: the scan kernel against plain, bit for bit ------------------
     scan_main, max_err_scan = check_scan_kernel(device, name)
+
+    # -- phase 2e: the scan's backward kernel against plain, bit for bit ------
+    scan_bwd_main, max_err_scan_bwd = check_scan_bwd_kernel(device, name)
 
     # -- phase 3: the main path -------------------------------------------
     args = parse_args(MAIN_ARGV + ["--device", "cuda", "--rounds", str(MAIN_ROUNDS)])
@@ -1704,6 +1950,8 @@ def main() -> int:
     print(f"[llm-summary] {json.dumps(llm_summary)}")
 
     # -- phase 3d: the serving path at full width -----------------------------
+    print(f"[serve] allocated at phase 3d's start: {torch.cuda.memory_allocated()} bytes "
+          f"(the script calls no gc.collect())")
     reset_launch_counts()
     report, tokens = run_serve_cli(SERVE_ARGV)
     torch.cuda.synchronize()
@@ -1728,7 +1976,6 @@ def main() -> int:
     # -- phase 3k: the load generator with the prefix cache --------------------
     load_summary = check_loadgen(device)
     print(f"[loadgen-summary] {json.dumps(load_summary)}")
-    gc.collect()
     torch.cuda.empty_cache()
 
     # -- phase 3e: the ssm serving path at full width ------------------------
@@ -1761,13 +2008,15 @@ def main() -> int:
     time_cpu_draw(ssm_cfg)
 
     # -- phase 3m: the hybrid serving path at full width ---------------------
-    gc.collect()
-    torch.cuda.empty_cache()
     counts_hyb = check_hybrid_serving(device)
 
     # -- phase 3l: gemma3-4b and nemotron-4-15b at full width -----------------
     dense_summary = check_dense_configs()
     print(f"[dense-summary] {json.dumps(dense_summary)}")
+
+    # -- phases 3n, 3o: training the hybrid and ssm families at full width ----
+    train_summary = check_ssm_training(device)
+    print(f"[train-summary] {json.dumps(train_summary)}")
 
     # -- phase 4: the card against the CPU ---------------------------------
     on_cpu, on_card = same_start_losses(torch.device("cpu"), device)
@@ -1845,6 +2094,18 @@ def main() -> int:
     check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
           f"LLM path: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
 
+    # -- phase 4i: the card against the CPU on the ssm and hybrid train path --
+    for arch in (HYBRID_ARCH, "falcon-mamba-7b"):
+        reset_launch_counts()
+        l_cpu, l_card = same_start_llm(torch.device("cpu"), device, arch=arch)
+        rel = float(((l_card - l_cpu).abs() / l_cpu.abs()).max())
+        print(f"[parity-train-{arch}] launches on the card={dict(launch_counts)} "
+              f"cpu={l_cpu.tolist()} cuda={l_card.tolist()} max_rel_diff={rel}")
+        check(launch_counts["ssm_scan"] > 0 and launch_counts["ssm_scan_bwd"] > 0,
+              f"{arch}: the card's training parity run skipped a scan kernel")
+        check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
+              f"{arch} training: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
+
     # -- phase 4g: the card against the CPU on spec decode and the new configs -
     reset_launch_counts()
     (plain_cpu, spec_cpu), (plain_card, spec_card) = spec_parity(
@@ -1910,12 +2171,26 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:49",
-        "launches": counts_ssm["ssm_scan"] + counts_hyb["ssm_scan"],
+        "launches": counts_ssm["ssm_scan"] + counts_hyb["ssm_scan"] + sum(
+            cell["launches"]["ssm_scan"] for cell in train_summary.values()),
         "max_abs_err": max_err_scan,
         "ms": scan_main["ms"],
         "plain_ms": scan_main["plain_ms"],
         "bound_ms": scan_main["bound_ms"],
         "bound_by": scan_main["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "ssm_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        # no TPU kernel: the reference takes jax.grad through the scan's twin
+        "replaces": "jax.grad through src/repro/models/ssm.py:158 (_chunk_recurrence)",
+        "launches": sum(cell["launches"]["ssm_scan_bwd"] for cell in train_summary.values()),
+        "max_abs_err": max_err_scan_bwd,
+        "ms": scan_bwd_main["ms"],
+        "plain_ms": scan_bwd_main["plain_ms"],
+        "bound_ms": scan_bwd_main["bound_ms"],
+        "bound_by": scan_bwd_main["bound_by"],
         "library_ms": None,
     }]
     print(smi)

@@ -20,13 +20,17 @@ def tree_flatten(tree):
     return [tree], None
 
 
+def _build(treedef, it):
+    return next(it) if treedef is None else {k: _build(v, it) for k, v in treedef.items()}
+
+
 def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
+    """The nested dict of ``treedef`` with ``leaves`` in sorted-key order.
 
-    def build(d):
-        return next(it) if d is None else {k: build(v) for k, v in d.items()}
-
-    return build(treedef)
+    A module-level helper takes the iterator as an argument: a nested
+    closure over itself would form a reference cycle holding ``leaves``,
+    which only the cyclic garbage collector frees."""
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree):

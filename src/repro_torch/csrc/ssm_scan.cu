@@ -31,6 +31,25 @@
 //
 // Fusing the construction of a = exp(dt * A) and b = dt * x * B, and the
 // C-projection of hs, into the kernel is for a later change.
+//
+// ssm_scan_bwd_kernel is the recurrence's gradient, for the training path
+// (fp32 only). The TPU side has no backward kernel: the reference takes
+// jax.grad through its lax.scan twin of the kernel
+// (repro/models/ssm.py::_chunk_recurrence). With g_t the gradient of the loss
+// with respect to h_t, it walks t from T-1 down to 0:
+//   g_t = d_hs_t + c,  d_a_t = g_t * h_{t-1} (h_{-1} = h0),  d_b_t = g_t,
+//   c = a_t * g_t,
+// starting from c = d_h_last and ending with d_h0 = c. Each product and sum
+// is rounded apart (never an FMA), so it is bit-identical to its plain
+// version. Bound: bytes. It reads a, d_hs and hs once and writes d_a and d_b
+// once: 5 * B * T * C * 4 bytes, 0.250 ms at zamba2-2.7b's training chunk
+// [2, 64, 327680]. The layout is the forward's: one thread a (b, c)
+// channel, g's carry in a register, the walk over t unrolled by kUnroll with
+// the group's 3 * kUnroll loads issued before its chain of multiply-adds, 32
+// neighbouring channels a warp, so every load and store is one coalesced
+// line; a grid of ceil(C / 256) x B blocks. A kernel of its own, rather
+// than the forward kernel on time-reversed inputs: that would add flips, a
+// shift and an elementwise pass for d_a, each a full [B, T, C] pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -93,6 +112,49 @@ __global__ void __launch_bounds__(kThreads)
   h_last[row * c_len + c] = from_f32<TH>(h);
 }
 
+__global__ void __launch_bounds__(kThreads)
+    ssm_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h0,
+                        const float* __restrict__ hs, const float* __restrict__ d_hs,
+                        const float* __restrict__ d_last, float* __restrict__ d_a,
+                        float* __restrict__ d_b, float* __restrict__ d_h0, int t_len,
+                        int64_t c_len) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (c >= c_len) return;
+  const int64_t row = blockIdx.y;
+  const int64_t base = row * t_len * c_len + c;
+  float carry = d_last[row * c_len + c];
+  int t = t_len - 1;
+  // groups of kUnroll steps t, t-1, ..., t-kUnroll+1, all with t-kUnroll+1 >= 1,
+  // so each step's h_{t-1} is a row of hs
+  for (; t - kUnroll + 1 >= 1; t -= kUnroll) {
+    float av[kUnroll], gv[kUnroll], hv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t off = base + static_cast<int64_t>(t - u) * c_len;
+      av[u] = a[off];
+      gv[u] = d_hs[off];
+      hv[u] = hs[off - c_len];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t off = base + static_cast<int64_t>(t - u) * c_len;
+      const float g = __fadd_rn(gv[u], carry);
+      d_a[off] = __fmul_rn(g, hv[u]);
+      d_b[off] = g;
+      carry = __fmul_rn(av[u], g);
+    }
+  }
+  for (; t >= 0; --t) {
+    const int64_t off = base + static_cast<int64_t>(t) * c_len;
+    const float h_prev = t ? hs[off - c_len] : h0[row * c_len + c];
+    const float g = __fadd_rn(d_hs[off], carry);
+    d_a[off] = __fmul_rn(g, h_prev);
+    d_b[off] = g;
+    carry = __fmul_rn(a[off], g);
+  }
+  d_h0[row * c_len + c] = carry;
+}
+
 template <typename TA, typename TH>
 cudaError_t launch(const void* a, const void* b, const void* h0, void* hs, void* h_last,
                    int batch, int t_len, int c_len, cudaStream_t stream) {
@@ -139,6 +201,25 @@ extern "C" int ssm_scan_fwd(const void* a, const void* b, const void* h0, void* 
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
+}
+
+// a, hs, d_hs, d_a, d_b: [batch, t_len, c_len] and h0, d_last, d_h0:
+// [batch, c_len], fp32, row-major on the device. Launches on `stream` and does
+// not synchronise. Returns a cudaError_t code as ssm_scan_fwd does.
+extern "C" int ssm_scan_bwd(const void* a, const void* h0, const void* hs, const void* d_hs,
+                            const void* d_last, void* d_a, void* d_b, void* d_h0, int batch,
+                            int t_len, int c_len, cudaStream_t stream) {
+  if (batch <= 0 || batch > 65535 || t_len < 0 || c_len <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>((static_cast<int64_t>(c_len) + kThreads - 1) / kThreads),
+                  batch);
+  ssm_scan_bwd_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(h0), static_cast<const float*>(hs),
+      static_cast<const float*>(d_hs), static_cast<const float*>(d_last),
+      static_cast<float*>(d_a), static_cast<float*>(d_b), static_cast<float*>(d_h0), t_len,
+      c_len);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* cuda_error_string(int code) {

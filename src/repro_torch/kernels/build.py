@@ -49,6 +49,7 @@ SIGNATURES = {
     },
     "ssm_scan": {
         "ssm_scan_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "ssm_scan_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -5,7 +5,8 @@ card. ``fused_compress`` is ``core/compression.py::compress_message``
 (top-k + b-level quantize along the last axis); ``flash_attention`` takes
 ``[B, S, H, D]`` and folds the heads into rows for
 ``kernels/flash_attention.py``; ``ssm_scan`` takes ``[B, T, ...]`` and folds
-the trailing dims into channels for ``kernels/ssm_scan.py``.
+the trailing dims into channels for ``kernels/ssm_scan.py``'s autograd route
+``SSMScan`` (the forward and backward kernels on the card).
 """
 from __future__ import annotations
 

@@ -32,6 +32,9 @@ left, on a fresh token stream every exchange interval:
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch gemma3-1b \
       --compression-k 0.25 --quantization 128 --rounds 2
+
+(or ``--arch falcon-mamba-7b``, ``--arch zamba2-2.7b``: their Mamba layers
+launch the scan's forward and backward kernels, counted in the line).
 """
 from __future__ import annotations
 
@@ -53,7 +56,8 @@ from repro_torch.launch.steps import LLMRoundRunner
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # The port's hand-written kernels, by the name of their __global__ function.
-PORT_KERNELS = ("compress_rows_kernel", "compress_rows_dp_kernel")
+PORT_KERNELS = ("compress_rows_kernel", "compress_rows_dp_kernel", "ssm_scan_kernel",
+                "ssm_scan_bwd_kernel")
 
 
 def device_intervals(trace_path: str):

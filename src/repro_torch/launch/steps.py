@@ -298,6 +298,9 @@ class LLMRoundRunner:
         stats = {k: [] for k in ("loss", "gnorm2", "delta2", "rho", "rho_ok")}
         for i in range(lam):
             batch_i = _pod(batches, i)
+            # the last interval's message goes before the next one is built:
+            # at full width each holds a copy of θ0 for every pod
+            stale = None
             stale = exch(params, batch_i, dp_clip, dp_sigma,
                          None if dp_noise is None else dp_noise[i], dp_generator)
             prev_g = None

@@ -18,8 +18,10 @@ LLM-scale federation: --arch <name> [--smoke] trains the ``llm_hybrid``
 decomposition of an assigned architecture on synthetic token streams
 (``launch/steps.py``): fixed-cadence rounds (--steps, --p, --q, --pods,
 --compression-k, --quantization) or the §VI loop (--adaptive). The dense
-family runs (gemma3-1b, stablelm-1.6b); other --arch values exit with "not
-ported yet". Without --smoke the widths are the published ones.
+(gemma3-1b, gemma3-4b, stablelm-1.6b, nemotron-4-15b), ssm (falcon-mamba-7b)
+and hybrid (zamba2-2.7b) families run; other --arch values (the paper
+models, whisper-medium, the MoE and VLM configs) exit with "not ported
+yet". Without --smoke the widths are the published ones.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --model paper-cnn \
@@ -33,6 +35,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --population sync \
       --fault-nan 0.05 --fault-dropout 0.1 --ckpt-every 2 --checkpoint ck
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b --steps 20 \
+      --compression-k 0.25 --quantization 128 --pods 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --steps 20 \
       --compression-k 0.25 --quantization 128 --pods 2
 """
 from __future__ import annotations
@@ -401,9 +405,9 @@ def run_llm(args) -> Tuple[dict, np.ndarray]:
 
 
 def llm_arch_ported(name: str) -> bool:
-    """An --arch this package trains: a registered config of the dense
-    family."""
-    return name in list_configs() and get_config(name).family == "dense"
+    """An --arch this package trains: a registered config of the dense, ssm
+    or hybrid family."""
+    return name in list_configs() and get_config(name).family in ("dense", "ssm", "hybrid")
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -17,10 +17,11 @@ stack alone, the self-speculative draft. The MoE, audio and VLM families
 raise "not ported yet".
 
 The train path (``forward``, ``backbone_forward``, ``lm_loss``) runs the
-dense family under autograd (the ssm and hybrid train paths are not ported
-yet); ``remat`` wraps each layer, and each chunk of
-the fused head + cross-entropy, in ``torch.utils.checkpoint`` where the
-reference has ``jax.checkpoint``.
+dense, ssm and hybrid families under autograd (the scan's gradient is
+``kernels/ssm_scan.py::SSMScan``); ``remat`` wraps each layer, and each
+chunk of the fused head + cross-entropy, in ``torch.utils.checkpoint`` where
+the reference has ``jax.checkpoint``. The hybrid family's shared block is
+not rematerialized, as in the reference.
 """
 from __future__ import annotations
 
@@ -110,6 +111,15 @@ def _remat(f, enabled: bool):
     return lambda *args: checkpoint(f, *args, use_reentrant=False)
 
 
+def _unbind_layers(stacked) -> List:
+    """Every layer's parameter tree of a stacked tree, from one ``unbind``
+    a stacked leaf: its backward stacks the layers' gradients once, where
+    indexing each layer would add a zero-filled full-stack gradient a layer."""
+    leaves, treedef = tree_flatten(stacked)
+    per_leaf = [torch.unbind(x, 0) for x in leaves]
+    return [tree_unflatten(treedef, list(layer)) for layer in zip(*per_leaf)]
+
+
 def dense_stack_forward(params, x, positions, cfg, windows, remat=True, positions_3d=None):
     """The reference's ``lax.scan`` over a stack of attention + MLP layers as
     a loop over its slices; ``windows`` holds each layer's window int."""
@@ -119,14 +129,45 @@ def dense_stack_forward(params, x, positions, cfg, windows, remat=True, position
         return y
 
     body = _remat(body, remat)
-    # one unbind a stacked leaf: its backward stacks the layers' gradients
-    # once, where indexing each layer would add a zero-filled full-stack
-    # gradient a layer
-    leaves, treedef = tree_flatten(params)
-    per_layer = [torch.unbind(x, 0) for x in leaves]
-    for i, win in enumerate(windows):
-        x = body(x, tree_unflatten(treedef, [ls[i] for ls in per_layer]), win)
+    for p, win in zip(_unbind_layers(params), windows):
+        x = body(x, p, win)
     return x
+
+
+def _mamba_layers(layers, x, cfg, remat):
+    """Mamba blocks over a list of layer trees, each rematerialized under
+    ``remat``."""
+
+    def body(xc, p):
+        return mamba_block(p, xc, cfg)[0]
+
+    body = _remat(body, remat)
+    for p in layers:
+        x = body(x, p)
+    return x
+
+
+def mamba_stack_forward(params, x, cfg, remat=True):
+    """The reference's ``lax.scan`` over a stack of Mamba layers as a loop
+    over its slices."""
+    return _mamba_layers(_unbind_layers(params), x, cfg, remat)
+
+
+def hybrid_forward(params, x, positions, cfg, windows, remat=True, force_window=False):
+    """zamba2: super-blocks of ``hybrid_attn_every`` Mamba layers, each
+    followed by the ONE shared attention + MLP block (its gradient is the
+    sum over its uses, as ``jax.grad`` gives); the layers past the last
+    whole super-block run at the end. The shared block attends over the
+    whole sequence unless ``force_window``. ``windows`` is unused, as in
+    the reference."""
+    period = cfg.hybrid_attn_every or cfg.num_layers
+    n_sb = cfg.num_layers // period
+    win = cfg.sliding_window if (cfg.sliding_window and force_window) else 0
+    layers = _unbind_layers(params["layers"])
+    for i in range(n_sb):
+        x = _mamba_layers(layers[i * period:(i + 1) * period], x, cfg, remat)
+        x, _ = attn_mlp_block(params["shared_attn"], x, positions, cfg, win)
+    return _mamba_layers(layers[n_sb * period:], x, cfg, remat)
 
 
 def dense_stack_decode(params, x, positions, cfg, windows, caches, cache_index,
@@ -268,13 +309,18 @@ def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None, remat: bool 
 def backbone_forward(cfg: ModelConfig, params, x, *, remat=True, force_window=False,
                      positions_3d=None):
     """Run the layer stack over already-embedded inputs x [B, S, D] ->
-    (x, aux). The dense family; the others raise "not ported yet"."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the {cfg.family!r} family's train path is not ported yet")
+    (x, aux). The dense, ssm and hybrid families; the others raise "not
+    ported yet"."""
+    _require_ported(cfg)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     windows = layer_windows(cfg, cfg.num_layers, force_window)
-    x = dense_stack_forward(params["layers"], x, positions, cfg, windows, remat, positions_3d)
+    if cfg.family == "dense":
+        x = dense_stack_forward(params["layers"], x, positions, cfg, windows, remat, positions_3d)
+    elif cfg.family == "ssm":
+        x = mamba_stack_forward(params["layers"], x, cfg, remat)
+    else:
+        x = hybrid_forward(params, x, positions, cfg, windows, remat, force_window)
     return x, torch.zeros((), device=x.device)
 
 

@@ -17,6 +17,9 @@ shared memory compresses group by group, each group equal to compressing
 its leaves one by one.
 """
 import dataclasses
+import gc
+import sys
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +39,7 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.models.split_model import llm_hybrid as jax_llm_hybrid
 from repro_torch.common.config import ModelConfig, get_config
+from repro_torch.common import pytree
 from repro_torch.common.pytree import tree_leaves, tree_map
 from repro_torch.core.compression import compress_rows_ref
 from repro_torch.core.controller import AdaptiveConfig
@@ -145,20 +149,30 @@ def test_token_stream_and_batches_match_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("remat", [False, True])
-@pytest.mark.parametrize("blockwise", [False, True])
-def test_forward_and_losses_match_reference(remat, blockwise, monkeypatch):
+# gemma3-1b keeps its cases' ids; the other dense configs' ids lead with
+# their name
+FORWARD_CASES = [pytest.param("gemma3-1b", remat, blockwise, id=f"{blockwise}-{remat}")
+                 for remat in (False, True) for blockwise in (False, True)] + [
+    pytest.param(arch, remat, blockwise, id=f"{arch}-{blockwise}-{remat}")
+    for arch in ("stablelm-1.6b", "gemma3-4b", "nemotron-4-15b")
+    for remat in (False, True) for blockwise in (False, True)]
+
+
+@pytest.mark.parametrize("arch,remat,blockwise", FORWARD_CASES)
+def test_forward_and_losses_match_reference(arch, remat, blockwise, monkeypatch):
     """forward, chunked_lm_head_loss (S = 40 against a chunk of 16, so the
-    last chunk is padded with -1 labels) and lm_loss at gemma3-1b smoke
-    widths (window 32 < S, qk-norm, GeGLU), values and gradients, with and
-    without remat; ``blockwise`` lowers BLOCKWISE_THRESHOLD to 16 in both
-    packages, so the online-softmax branch is the one differentiated."""
+    last chunk is padded with -1 labels) and lm_loss at the dense configs'
+    smoke widths (gemma3-1b: window 32 < S, qk-norm, GeGLU; stablelm-1.6b:
+    layernorm; gemma3-4b; nemotron-4-15b: squared ReLU, an untied head),
+    values and gradients, with and without remat; ``blockwise`` lowers
+    BLOCKWISE_THRESHOLD to 16 in both packages, so the online-softmax
+    branch is the one differentiated."""
     monkeypatch.setattr(JT, "CE_CHUNK", 16)
     monkeypatch.setattr(T, "CE_CHUNK", 16)
     if blockwise:
         monkeypatch.setattr(JA, "BLOCKWISE_THRESHOLD", 16)
         monkeypatch.setattr(A, "BLOCKWISE_THRESHOLD", 16)
-    jcfg, cfg = jax_get_config("gemma3-1b", smoke=True), get_config("gemma3-1b", smoke=True)
+    jcfg, cfg = jax_get_config(arch, smoke=True), get_config(arch, smoke=True)
     jp = jax.jit(lambda k: JL.init_params(JT.model_specs(jcfg), k, jnp.float32))(
         jax.random.PRNGKey(1))
     tp = T.params_from_numpy(cfg, _np(jp))
@@ -225,6 +239,41 @@ def test_hybrid_grads_and_step_stats_match_reference():
     _close_trees(plain_p, _np(want_p), rtol=1e-4)
     with pytest.raises(ValueError, match="divisible by n_shards"):
         ST.make_hsgd_step_stats(tmodel, 3)(tp, tstale, tb, 0.05)
+
+
+def test_tree_unflatten_frees_its_leaves_without_the_cyclic_collector(monkeypatch):
+    """With the cyclic garbage collector off, an exchange (k = 0.25, b = 128)
+    and ``hybrid_grads`` at gemma3-1b smoke widths free, on return, every
+    tensor they handed ``tree_unflatten`` (the detached leaves, the
+    gradients, the messages) except the caller's own parameters and batch:
+    ``tree_unflatten`` forms no reference cycle."""
+    seen = []
+    real = pytree.tree_unflatten
+
+    def recording(treedef, leaves):
+        seen.extend(weakref.ref(x) for x in leaves if isinstance(x, torch.Tensor))
+        return real(treedef, leaves)
+
+    for mod in [m for name, m in sys.modules.items() if name.startswith("repro_torch")]:
+        if getattr(mod, "tree_unflatten", None) is real:
+            monkeypatch.setattr(mod, "tree_unflatten", recording)
+    cfg = get_config("gemma3-1b", smoke=True)
+    model = llm_hybrid(cfg, n_tower=1, remat=False)
+    params = model.init(torch.Generator().manual_seed(0))
+    _, batch = _flat_batch(cfg.vocab_size, S=16)
+    held = {id(x) for x in tree_leaves(params) + list(batch.values())}
+    gc.collect()
+    gc.disable()
+    try:
+        stale = ST.make_exchange_step(model, 0.25, 128)(params, batch)
+        loss, grads = ST.hybrid_grads(model, params, stale, batch)
+        assert torch.isfinite(loss)
+        del stale, loss, grads
+        alive = [r() for r in seen if r() is not None and id(r()) not in held]
+    finally:
+        gc.enable()
+    assert len(seen) > 3 * len(held)
+    assert not alive, f"{len(alive)} of {len(seen)} tensors handed to tree_unflatten stay alive"
 
 
 def test_exchange_step_matches_reference():
@@ -395,11 +444,16 @@ def test_cli_smoke_matches_runner_and_checkpoint_loads(tmp_path, capsys):
 
 
 def test_cli_asks_for_the_card_and_refuses_unported_arches():
+    """The CLI runs on the card unless asked for the CPU. --arch admits the
+    dense, ssm and hybrid families (falcon-mamba-7b, zamba2-2.7b) and
+    refuses the paper models and an arch absent from the port's registry."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         TR.main(CLI[2:])
-    for arch in ("falcon-mamba-7b", "zamba2-2.7b", "paper-cnn"):
+    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+        assert TR.parse_args(["--arch", arch]).arch == arch
+    for arch in ("paper-cnn", "whisper-medium"):
         with pytest.raises(SystemExit, match="not ported yet"):
             TR.parse_args(["--arch", arch])
     with pytest.raises(SystemExit):

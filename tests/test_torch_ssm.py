@@ -8,9 +8,13 @@ oracle's multiply-add into an FMA; the port rounds the product and the sum
 apart, as the kernel does). ``ops.ssm_scan``, ``chunked_linear_recurrence``,
 ``_chunk_recurrence`` and ``mamba1_forward`` (no state, an f32 state, an
 int8 state) are held against the reference's within 1e-5; params come from
-the reference's ``init_params`` through ``params_from_numpy``. The CUDA
-kernel against the plain version, bit for bit, runs only on the card
-(``gpu`` marker). Mamba-2 (zamba2's SSD heads) is held in
+the reference's ``init_params`` through ``params_from_numpy``. The scan's
+gradient (``SSMScan``, whose CPU backward is ``ssm_scan_bwd_ref``) equals
+the plain backward bit for bit, is within 1e-6 of torch autograd through
+``ssm_scan_ref`` (the same products and sums, accumulated in another
+order) and within 1e-5 of ``jax.grad`` through the reference's
+``chunked_linear_recurrence``. The CUDA kernels against the plain versions,
+bit for bit, run only on the card (``gpu`` marker). Mamba-2 (zamba2's SSD heads) is held in
 ``tests/test_torch_hybrid.py``.
 """
 import jax
@@ -29,7 +33,8 @@ from repro.models import ssm as JS
 from repro.models import transformer as JT
 from repro_torch.common.config import get_config
 from repro_torch.kernels import build, launch_counts, ops, reset_launch_counts
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_cuda, ssm_scan_ref
+from repro_torch.kernels.ssm_scan import (SSMScan, ssm_scan, ssm_scan_bwd_cuda,
+                                          ssm_scan_bwd_ref, ssm_scan_cuda, ssm_scan_ref)
 from repro_torch.models import quant as Q
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
@@ -248,6 +253,73 @@ def test_state_specs_match_reference():
 
 
 # ---------------------------------------------------------------------------
+# The scan's gradient
+# ---------------------------------------------------------------------------
+
+
+def _grad_inputs(shape, kind, with_last, seed=0):
+    """Scan inputs that require grad, and output gradients: d_hs [B, T, C]
+    and d_last [B, C] (None: h_last unused)."""
+    a, b, h0 = (torch.from_numpy(x).requires_grad_() for x in _scan_inputs(shape, kind, seed))
+    rng = np.random.default_rng(seed + 1)
+    d_hs = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    d_last = (torch.from_numpy(rng.standard_normal((shape[0], shape[2])).astype(np.float32))
+              if with_last else None)
+    return a, b, h0, d_hs, d_last
+
+
+@pytest.mark.parametrize("with_last", [True, False])
+@pytest.mark.parametrize("kind", ["sigmoid", "strong"])
+@pytest.mark.parametrize("T_len", [1, 37, 300])
+def test_scan_gradient_matches_plain_autograd_and_reference(T_len, kind, with_last):
+    """SSMScan's CPU gradients equal ssm_scan_bwd_ref's (a missing ∂h_last is
+    zeros), are within 1e-6 of torch autograd through ssm_scan_ref, and the
+    gradient of the chunked recurrence (T = 300: two chunks, so the carried
+    h_last gets a gradient) is within 1e-5 of jax.grad through the
+    reference's."""
+    a, b, h0, d_hs, d_last = _grad_inputs((2, T_len, 6), kind, with_last)
+    outs = ssm_scan(a, b, h0)
+    got = torch.autograd.grad(outs if with_last else outs[0],
+                              (a, b, h0), (d_hs, d_last) if with_last else d_hs)
+    hs = outs[0].detach()
+    want = ssm_scan_bwd_ref(a.detach(), h0.detach(), hs, d_hs,
+                            d_last if with_last else torch.zeros_like(h0))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    plain = ssm_scan_ref(a, b, h0)
+    auto = torch.autograd.grad(plain if with_last else plain[0],
+                               (a, b, h0), (d_hs, d_last) if with_last else d_hs)
+    for g, w in zip(got, auto):
+        _close(g.numpy(), w.numpy(), 1e-6)
+
+    def port_loss(a, b, h0):
+        hs, hl = S.chunked_linear_recurrence(a, b, h0)
+        loss = torch.sum(hs * d_hs)
+        return loss + torch.sum(hl * d_last) if with_last else loss
+
+    def ref_loss(a, b, h0):
+        hs, hl = JS.chunked_linear_recurrence(a, b, h0)
+        loss = jnp.sum(hs * jnp.asarray(d_hs.numpy()))
+        return loss + jnp.sum(hl * jnp.asarray(d_last.numpy())) if with_last else loss
+
+    got = torch.autograd.grad(port_loss(a, b, h0), (a, b, h0))
+    want = jax.jit(jax.grad(ref_loss, argnums=(0, 1, 2)))(
+        *(jnp.asarray(x.detach().numpy()) for x in (a, b, h0)))
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+
+
+def test_scan_gradient_takes_float32_only():
+    """bf16 inputs that require grad raise (no cast); bf16 without grad, the
+    serving path, runs."""
+    a, b, h0 = (torch.from_numpy(x).bfloat16() for x in _scan_inputs((2, 8, 4), "sigmoid"))
+    with pytest.raises(TypeError, match="float32 only"):
+        ssm_scan(a.requires_grad_(), b, h0)
+    hs, hl = ssm_scan(a.detach(), b, h0)
+    assert hs.dtype == torch.bfloat16 and not hs.requires_grad
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
@@ -263,9 +335,10 @@ def test_cuda_wrapper_refuses_what_it_does_not_take():
 def test_scan_source_builds_for_hopper():
     cmd = " ".join(build.nvcc_command(build.CSRC / "ssm_scan.cu", "/dev/null"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "--fmad=false" in cmd
-    assert "ssm_scan_fwd" in build.SIGNATURES["ssm_scan"]
+    assert {"ssm_scan_fwd", "ssm_scan_bwd"} <= set(build.SIGNATURES["ssm_scan"])
     src = (build.CSRC / "ssm_scan.cu").read_text()
     assert "__fmul_rn" in src and "__fadd_rn" in src
+    assert "ssm_scan_bwd_kernel" in src
 
 
 GPU_CASES = [((2, 256, 131072), torch.float32, torch.float32),
@@ -293,3 +366,50 @@ def test_kernel_matches_plain_on_the_card(shape, a_dtype, h_dtype):
     want = ssm_scan_ref(a, b, h0)
     assert got[0].dtype == a_dtype and got[1].dtype == h_dtype
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cuda_scan_refuses_inputs_that_require_grad():
+    """The raw forward kernel's outputs carry no gradient: under grad mode it
+    refuses inputs that require one and names the autograd route; with
+    grad off it runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    a, b, h0 = (torch.from_numpy(x).to(dev) for x in _scan_inputs((2, 37, 7), "sigmoid"))
+    with pytest.raises(RuntimeError, match="SSMScan"):
+        ssm_scan_cuda(a.requires_grad_(), b, h0)
+    with torch.no_grad():
+        hs, _ = ssm_scan_cuda(a, b, h0)
+    assert not hs.requires_grad
+
+
+BWD_GPU_CASES = [((2, 64, 327680), "sigmoid", True), ((2, 32, 327680), "sigmoid", False),
+                 ((2, 64, 131072), "sigmoid", True), ((2, 1, 4096), "sigmoid", True),
+                 ((3, 37, 7), "sigmoid", True), ((2, 300, 200), "strong", False),
+                 ((2, 45, 300), "tail", True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kind,with_last", BWD_GPU_CASES)
+def test_backward_kernel_matches_plain_on_the_card(shape, kind, with_last):
+    """The backward kernel against ssm_scan_bwd_ref on the card, bit for bit,
+    directly and as SSMScan's gradient through torch.autograd.grad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    a, b, h0, d_hs, d_last = (None if x is None else x.detach().to(dev)
+                              for x in _grad_inputs(shape, kind, with_last))
+    d_last = torch.zeros_like(h0) if d_last is None else d_last
+    hs = ssm_scan_ref(a, b, h0)[0]
+    reset_launch_counts()
+    got = ssm_scan_bwd_cuda(a, h0, hs, d_hs, d_last)
+    torch.cuda.synchronize()
+    assert launch_counts["ssm_scan_bwd"] == 1
+    want = ssm_scan_bwd_ref(a, h0, hs, d_hs, d_last)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    leaves = [x.requires_grad_() for x in (a, b, h0)]
+    auto = torch.autograd.grad(SSMScan.apply(*leaves), leaves, (d_hs, d_last))
+    for g, w in zip(auto, want):
+        assert torch.equal(g, w)

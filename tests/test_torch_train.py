@@ -152,15 +152,18 @@ def test_default_device_is_cuda_and_raises_without_it():
         T.run_ehealth(T.parse_args(TINY))
 
 
-@pytest.mark.parametrize("flag", [["--arch", "falcon-mamba-7b"], ["--arch", "paper-cnn"],
-                                  ["--arch", "zamba2-2.7b"], ["--arch", "falcon-mamba-7b", "--smoke"],
-                                  ["--population", "sync", "--arch", "zamba2-2.7b"],
+@pytest.mark.parametrize("flag", [["--arch", "paper-lstm"], ["--arch", "paper-cnn"],
+                                  ["--arch", "qwen2-vl-72b"], ["--arch", "grok-1-314b", "--smoke"],
+                                  ["--population", "sync", "--arch", "whisper-medium"],
                                   ["--fault-nan", "0.1", "--smoke", "--arch", "deepseek-v3-671b"],
                                   ["--checkpoint", "ckpt", "--arch", "whisper-medium"]])
 def test_unported_flags_refuse(flag):
-    """Only --arch values outside the dense family are still unported; the
-    dense --arch path runs (tests/test_torch_llm.py), as do the population,
-    fault and checkpoint flags (tests/test_torch_faults.py,
+    """Only --arch values outside the dense, ssm and hybrid families are
+    still unported (the paper models, which are not LLM architectures, and
+    the audio, VLM and MoE configs); the dense --arch path runs
+    (tests/test_torch_llm.py), the ssm and hybrid ones too
+    (tests/test_torch_ssm_train.py), as do the population, fault and
+    checkpoint flags (tests/test_torch_faults.py,
     tests/test_torch_population.py, tests/test_torch_checkpoint.py)."""
     with pytest.raises(SystemExit, match="not ported yet"):
         T.parse_args(["--device", "cpu"] + flag)
@@ -242,7 +245,14 @@ def test_profile_port_kernel_times():
     ]
     intervals.append(("kernel", "(anonymous namespace)::compress_rows_dp_kernel(float const*)",
                       40.0, 9.0))
+    intervals.append(("kernel", "void (anonymous namespace)::ssm_scan_kernel<float, float>",
+                      50.0, 4.0))
+    intervals.append(("kernel", "(anonymous namespace)::ssm_scan_bwd_kernel(float const*)",
+                      60.0, 5.0))
     assert port_kernel_times(intervals) == {"compress_rows_kernel": {"launches": 2, "us": 15.5},
-                                            "compress_rows_dp_kernel": {"launches": 1, "us": 9.0}}
-    assert port_kernel_times([]) == {"compress_rows_kernel": {"launches": 0, "us": 0},
-                                     "compress_rows_dp_kernel": {"launches": 0, "us": 0}}
+                                            "compress_rows_dp_kernel": {"launches": 1, "us": 9.0},
+                                            "ssm_scan_kernel": {"launches": 1, "us": 4.0},
+                                            "ssm_scan_bwd_kernel": {"launches": 1, "us": 5.0}}
+    assert port_kernel_times([]) == {name: {"launches": 0, "us": 0} for name in (
+        "compress_rows_kernel", "compress_rows_dp_kernel", "ssm_scan_kernel",
+        "ssm_scan_bwd_kernel")}
