@@ -224,6 +224,44 @@ respectively):
      CPU-drawn model and one token stream, per-step losses within rtol
      1e-3, scan and backward-scan launches on the card.
 Phase 3d also prints the device bytes allocated at its start.
+
+The audio family, whisper-medium, and the last two example twins (phase 2's
+head rows, then after 3o and 4i respectively):
+  2. also whisper-medium's head rows [1024, 51865] (k = 25 %, b = 128: a
+     width not a multiple of 32 in the shared-memory body), bit for bit and
+     timed beside its bound;
+  3p. ``repro_torch.launch.serve --arch whisper-medium --full --batch 4
+     --prompt-len 416 --gen 32`` (416 + 32 = whisper's 448-token text
+     context, cache bucket 512; 24 encoder and 24 decoder layers, d 1024,
+     1500 frames; arXiv:2212.04356), with fp32 caches, then with int8
+     caches, the launch counters zeroed just before and read just after:
+     no kernel of the port (no flash: no prefill block passes 2048 tokens;
+     no scan), 128 tokens in [0, V), prefill seconds, the encoder's share
+     of it (CUDA events around the encoder and the cross K/V projection
+     inside that prefill), ms a decode step, peak device memory; then
+     5 requests through 2 slots, each with its own frames, at full width:
+     every request's tokens equal ``sequential_generate``'s on the card;
+  3q. ``repro_torch.launch.train --arch whisper-medium --steps 20
+     --compression-k 0.25 --quantization 128 --pods 2`` at published
+     widths, depth not cut: exactly exchanges x row groups compress
+     launches (pinned in TRAIN_CELLS; every exchange's group count read
+     from ``row_groups`` of the message the run built) and no other
+     kernel, finite losses falling within every exchange interval,
+     steps/s, peak device memory; then one more round whose first
+     exchange's four row groups ([7077888, 64], [744120, 1024] with ζ1
+     and ζ2, [147456, 4096], [2048, 51865]) are each held torch.equal
+     against the plain version, and one more profiled for the busy share,
+     kernels a step and device ms by kernel;
+  3r. the example twins on the card: ``repro_torch.examples.train_100m_hsgd
+     --steps 20`` (adaptive) and ``--fixed --q 4 --steps 20``, steps/s and
+     the per-round trace, launches counted; then
+     ``repro_torch.examples.serve_batched`` (int8 caches, γ = 1, the prefix
+     cache, a Poisson trace, then the serve CLI);
+  4j. the card against the CPU at whisper-medium's smoke widths: first-step
+     logits within 1e-4 of the largest |logit| and equal greedy tokens from
+     the engine (each request with its own frames), and 2 training rounds
+     (--pods 2, k = 0.25, b = 128) from one CPU-drawn model, per-step
+     losses within rtol 1e-3.
 """
 from __future__ import annotations
 
@@ -264,7 +302,7 @@ from repro_torch.core.controller import (  # noqa: E402
 from repro_torch.core.hsgd import HSGDRunner, exchange, init_state, resize_cohort  # noqa: E402
 from repro_torch.core.population import (CoordinatorPreempted, DeviceRegistry,  # noqa: E402
                                          PopulationConfig)
-from repro_torch.examples import quickstart  # noqa: E402
+from repro_torch.examples import quickstart, serve_batched, train_100m_hsgd  # noqa: E402
 from repro_torch.kernels import build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels import compress as compress_kernels  # noqa: E402
 from repro_torch.kernels.compress import fused_compress, stack_rows  # noqa: E402
@@ -273,8 +311,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: 
                                                  flash_attention_ref)
 from repro_torch.kernels.ssm_scan import (SSMScan, ssm_scan_bwd_cuda,  # noqa: E402
                                           ssm_scan_bwd_ref, ssm_scan_cuda, ssm_scan_ref)
-from repro_torch.launch import loadgen, profile_train, serve  # noqa: E402
-from repro_torch.launch.engine import ServeEngine  # noqa: E402
+from repro_torch.launch import loadgen, profile_train, serve, steps as llm_steps  # noqa: E402
+from repro_torch.launch.engine import ServeEngine, sequential_generate  # noqa: E402
 from repro_torch.launch.timing import device_ms  # noqa: E402
 from repro_torch.data.synthetic import llm_batch_fn  # noqa: E402
 from repro_torch.launch.steps import LLMRoundRunner, init_llm_params  # noqa: E402
@@ -396,6 +434,8 @@ LLM_ADAPTIVE_ARGV = ["--arch", "gemma3-1b", "--adaptive", "--steps", "16", "--ma
                      "--compression-k", "0.25", "--quantization", "128"]
 # the head's rows of that message: [d_model, vocab] (phases 2 and 2b)
 HEAD_SHAPE = (1152, 262144)
+# the widest row of the compress kernels' shared-memory body (csrc/compress.cu)
+SMEM_ROW_FLOATS = 58112
 LLM_GROUPS = 4  # row groups of one gemma3-1b exchange message
 # the scan's backward kernel against its plain version (phase 2e): (name,
 # (B, T, C), the decay a, ∂h_last nonzero); the first is the hybrid
@@ -424,7 +464,19 @@ TRAIN_CELLS = {
     "zamba2-2.7b": (54, 7, {"ssm_scan": 4440, "ssm_scan_bwd": 4400, "fused_compress": 70}),
     "falcon-mamba-7b": (FALCON_TRAIN_LAYERS, 5,
                         {"ssm_scan": 1400, "ssm_scan_bwd": 1360, "fused_compress": 50}),
+    # no Mamba layer: row groups of widths 64, 1024, 4096 and 51865
+    "whisper-medium": (0, 4, {"fused_compress": 40}),
 }
+# whisper-medium at published widths (phases 3p, 3q, 4j): --prompt-len 416
+# + --gen 32 fill whisper's 448-token text context (cache bucket 512), far
+# below the 2048 tokens that route a prefill block to flash
+AUDIO_ARCH = "whisper-medium"
+AUDIO_SERVE_ARGV = ["--arch", AUDIO_ARCH, "--full", "--batch", "4", "--prompt-len", "416",
+                    "--gen", "32"]
+AUDIO_HEAD_SHAPE = (1024, 51865)
+# 5 requests through 2 slots at full width (phase 3p): (prompt length, new tokens)
+AUDIO_REQUESTS = ((64, 8), (64, 12), (32, 6), (32, 10), (48, 8))
+AUDIO_PARITY_LEN, AUDIO_PARITY_GEN = 24, 8
 # checkpoints of phase 3g, inside the checkout's ignored build directory
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 
@@ -823,15 +875,17 @@ def run_serve_cli(argv):
     return report, tokens
 
 
-def first_step_logits(cfg, params, prompts, cache_len, cache_dtype=torch.float32):
+def first_step_logits(cfg, params, prompts, cache_len, cache_dtype=torch.float32, extra=None):
     """Logits [B, V] after ``prompts`` (numpy [B, S]), on the CPU: one
-    fresh-cache block, or, for the hybrid family's ring, the engine's
-    blocks: one that fills the ring, then one token at a time past its
-    edge."""
+    fresh-cache block (after the audio family's encoder over the frames
+    ``extra``), or, for the hybrid family's ring, the engine's blocks: one
+    that fills the ring, then one token at a time past its edge."""
     dev = params["embed"]["table"].device
     toks = torch.from_numpy(prompts).to(dev)
     B, S = prompts.shape
     caches = T.init_decode_caches(cfg, B, cache_len, cache_dtype, dev)
+    if cfg.family == "audio":
+        caches = T.seed_audio_caches(cfg, params, caches, torch.from_numpy(extra).to(dev))
     if cfg.family != "hybrid":
         logits, _ = T.decode_step(cfg, params, toks, caches, 0, fresh_cache=True)
         return logits[:, -1].cpu()
@@ -843,44 +897,49 @@ def first_step_logits(cfg, params, prompts, cache_len, cache_dtype=torch.float32
 
 
 def serve_parity(arch, prompt_len, gen, *devices):
-    """``arch``'s smoke widths, one prompt pair of ``prompt_len`` tokens:
-    (first-step logits [B, V] on the CPU, greedy engine tokens) per device,
-    from the same CPU-drawn params."""
+    """``arch``'s smoke widths, one prompt pair of ``prompt_len`` tokens
+    (each with its own frames for the audio family): (first-step logits
+    [B, V] on the CPU, greedy engine tokens) per device, from the same
+    CPU-drawn params."""
     cfg = get_config(arch, smoke=True)
     params0 = L.init_params(T.model_specs(cfg), torch.Generator().manual_seed(0))
-    prompts = serve.build_inputs(cfg, 2, prompt_len, seed=0)[1]
+    _, prompts, extra = serve.build_inputs(cfg, 2, prompt_len, seed=0)
     out = []
     for dev in devices:
         params = tree_map(lambda t: t.to(dev), params0)
-        logits = first_step_logits(cfg, params, prompts, prompt_len)
+        logits = first_step_logits(cfg, params, prompts, prompt_len, extra=extra)
         engine = ServeEngine(cfg, params, max_batch=2, cache_dtype=torch.float32,
                              decode_block=4)
-        toks, _ = engine.generate(list(prompts), gen)
+        toks, _ = engine.generate(list(prompts), gen, extra_embeds=extra)
         out.append((logits, toks))
     return out
 
 
-def top2_gap(cfg, params, prompt, tokens):
+def top2_gap(cfg, params, prompt, tokens, frames=None):
     """The full model's top-2 logit gap after ``prompt`` and ``tokens``
-    (one fresh-cache forward in fp32 caches): how near a tie the next
-    token is."""
+    (one fresh-cache forward in fp32 caches, after the audio family's
+    encoder over ``frames``): how near a tie the next token is."""
     seq = np.concatenate([np.asarray(prompt, np.int32), np.asarray(tokens, np.int32)])[None]
     dev = params["embed"]["table"].device
     caches = T.init_decode_caches(cfg, 1, seq.shape[1], torch.float32, dev)
+    if frames is not None:
+        caches = T.seed_audio_caches(cfg, params, caches, torch.from_numpy(frames[None]).to(dev))
     hidden, _ = T.decode_hidden(cfg, params, torch.from_numpy(seq).to(dev), caches, 0,
                                 fresh_cache=True)
     top = torch.topk(T.logits_from_hidden(cfg, params, hidden[:, -1])[0], 2).values
     return float(top[0] - top[1])
 
 
-def check_same_tokens(tag, cfg, params, prompts, want, got):
+def check_same_tokens(tag, cfg, params, prompts, want, got, frames=None):
     """Fails unless every request's tokens ``got`` equal ``want``; at the
-    first mismatch prints the full model's top-2 logit gap there."""
+    first mismatch prints the full model's top-2 logit gap there (after
+    the request's ``frames`` for the audio family)."""
     for i, (w, g) in enumerate(zip(want, got)):
         if list(w) == list(g):
             continue
         j = next((t for t, (a, b) in enumerate(zip(w, g)) if a != b), min(len(w), len(g)))
-        gap = top2_gap(cfg, params, prompts[i], w[:j]) if j < min(len(w), len(g)) else None
+        gap = (top2_gap(cfg, params, prompts[i], w[:j], None if frames is None else frames[i])
+               if j < min(len(w), len(g)) else None)
         print(f"[{tag}] request {i}: first mismatch at token {j}: want {list(w)[j:j + 4]} got "
               f"{list(g)[j:j + 4]}; the full model's top-2 logit gap there: {gap}")
         check(False, f"{tag}: request {i}'s tokens differ from the plain run's at token {j} "
@@ -916,7 +975,8 @@ def check_spec_serving(device, plain_tokens):
           f"{report['ms_per_decode_step']} decode_tok_per_s={report['decode_tok_per_s']} "
           f"peak_device_bytes={report['peak_device_bytes']}")
     if tokens != plain_tokens:
-        params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+        params, prompts, _ = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed,
+                                                device)
         check_same_tokens("spec", cfg, params, prompts, plain_tokens, tokens)
     check(counts == {"flash_attention": cfg.num_layers},
           f"spec serving launches {counts}, expected {cfg.num_layers} flash launches and no other")
@@ -924,7 +984,8 @@ def check_spec_serving(device, plain_tokens):
     out = {"random": {"acceptance": spec["acceptance"],
                       "ms_per_token": report["ms_per_decode_step"]}}
     del report, tokens
-    params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+    params, prompts, _ = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed,
+                                            device)
     pass_through(params, cfg.num_layers // 2)
     args.max_batch = args.batch
     runs = []
@@ -1032,7 +1093,8 @@ def check_hybrid_serving(device):
           "hybrid serving tokens out of [0, V)")
     del report
     torch.cuda.empty_cache()
-    params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+    params, prompts, _ = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed,
+                                            device)
     logits = first_step_logits(cfg, params, prompts, cache_len, args.cache_dtype)
     first = torch.argmax(logits, dim=-1).tolist()
     print(f"[serve-hybrid] first-step logits {list(logits.shape)}: max |logit| "
@@ -1092,8 +1154,8 @@ def check_dense_configs():
             check(counts == {"flash_attention": cfg.num_layers},
                   f"{arch} spec: launches {counts}, expected {cfg.num_layers} flash launches")
             if spec_tokens != tokens:
-                params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len,
-                                                     args.seed, torch.device("cuda"))
+                params, prompts, _ = serve.build_inputs(cfg, args.batch, args.prompt_len,
+                                                        args.seed, torch.device("cuda"))
                 check_same_tokens(f"{arch}-spec", cfg, params, prompts, tokens, spec_tokens)
             out[arch]["spec"] = {"acceptance": spec["acceptance"],
                                  "ms_per_token": spec_report["ms_per_decode_step"]}
@@ -1256,15 +1318,17 @@ def same_state(a, b) -> bool:
 
 
 @contextlib.contextmanager
-def kept_messages():
+def kept_messages(limit=None):
     """Yield a list that collects every message a run hands the compress
-    kernel, as (x, k, levels, row_len, dp...) by reference: each is a fresh
-    tensor the path never writes again. The kernel's wrapper still
-    launches, and counts, every call."""
+    kernel (the first ``limit`` of them, if given), as (x, k, levels,
+    row_len, dp...) by reference: each is a fresh tensor the path never
+    writes again. The kernel's wrapper still launches, and counts, every
+    call."""
     launch, kept = compress_kernels.fused_compress, []
 
     def keep(x, k, levels=0, row_len=None, *dp):
-        kept.append((x, k, levels, row_len) + dp)
+        if limit is None or len(kept) < limit:
+            kept.append((x, k, levels, row_len) + dp)
         return launch(x, k, levels, row_len, *dp)
 
     compress_kernels.fused_compress = keep
@@ -1531,14 +1595,14 @@ def same_start_population(*devices):
     return out
 
 
-def check_head_rows(device, bw, flops, dp: bool):
-    """Phases 2 and 2b at the LLM message's widest group, the head's rows
-    HEAD_SHAPE (k = 25%, b = 128): the wide body against plain
-    (torch.equal), timed beside its bound; the plain version is timed over
-    fewer replays (one call moves ~100 GB)."""
+def check_head_rows(device, bw, flops, dp: bool, shape=HEAD_SHAPE):
+    """Phases 2 and 2b at an LLM message's widest group, the head's rows
+    ``shape`` (k = 25%, b = 128; gemma3-1b's by default): the kernel against
+    plain (torch.equal), timed beside its bound; the plain version is timed
+    over fewer replays (one call at gemma3-1b's moves ~100 GB)."""
     g = torch.Generator(device=device).manual_seed(3)
-    rows, n = HEAD_SHAPE
-    mat = torch.randn(HEAD_SHAPE, generator=g, device=device) * 0.02
+    rows, n = shape
+    mat = torch.randn(shape, generator=g, device=device) * 0.02
     k_rows = torch.full((rows,), round(0.25 * n), dtype=torch.int32, device=device)
     len_rows = torch.full((rows,), n, dtype=torch.int32, device=device)
     dp_args = dp_operands(mat, 1.0, 1.0) if dp else ()
@@ -1546,14 +1610,15 @@ def check_head_rows(device, bw, flops, dp: bool):
     want = compress_rows_ref(mat, k_rows, 128, len_rows, *dp_args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    tag = f"{'DP ' if dp else ''}LLM head rows {HEAD_SHAPE}"
+    tag = f"{'DP ' if dp else ''}LLM head rows {shape}"
     check(torch.equal(got, want), f"{tag}: kernel differs from plain (max |diff| {err})")
     del got, want
     ms = device_ms(lambda: fused_compress(mat, k_rows, 128, len_rows, *dp_args), inner=2, reps=7)
     plain_ms = device_ms(lambda: compress_rows_ref(mat, k_rows, 128, len_rows, *dp_args),
                          inner=1, reps=3)
     bound, bound_by = compress_bound_ms(mat, len_rows, 128, bw, flops, dp)
-    print(f"[kernel] {tag} levels=128 k=25%: bit-identical (wide body, one block a row) "
+    body = "wide body, one block a row" if n > SMEM_ROW_FLOATS else "shared-memory body"
+    print(f"[kernel] {tag} levels=128 k=25%: bit-identical ({body}) "
           f"kernel_ms={ms} plain_ms={plain_ms} bound_ms={bound} ({bound_by}) "
           f"bound/kernel={bound / ms} library_ms=null")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -1685,17 +1750,39 @@ def same_start_llm(*devices, arch="gemma3-1b"):
 def train_launches(args, layers: int, groups: int):
     """The launches of a fixed-cadence LLM run at --batch 2 --seq 64 with one
     tower layer a side (``llm_hybrid(n_tower=1)``), from launch/steps.py's
-    structure. Every pod-step runs the hospital's pass (θ0 and tower 1) and
-    the device's (θ0 and tower 2), each a forward then a backward through
-    ``layers`` + 1 Mamba layers, one scan chunk a layer (θ0's 64 tokens and
-    a tower's 32 are one chunk of at most 256): a scan and a backward scan
-    launch a layer and pass. Every exchange runs both towers without grad on
-    each pod (one scan launch each) and compresses the message with one
-    launch a row group."""
+    structure. Every exchange compresses the message with one launch a row
+    group. With ``layers`` Mamba layers in θ0 (the ssm and hybrid families,
+    whose towers are one Mamba layer each), every pod-step runs the
+    hospital's pass (θ0 and tower 1) and the device's (θ0 and tower 2),
+    each a forward then a backward through ``layers`` + 1 Mamba layers, one
+    scan chunk a layer (θ0's 64 tokens and a tower's 32 are one chunk of at
+    most 256): a scan and a backward scan launch a layer and pass; every
+    exchange also runs both towers without grad on each pod (one scan
+    launch each). With none (whisper: dense towers) nothing else launches."""
     exchanges = (args.steps // args.p) * (args.p // args.q)
-    per_step = 2 * (layers + 1) * args.steps * args.pods
-    return {"ssm_scan": per_step + 2 * args.pods * exchanges, "ssm_scan_bwd": per_step,
-            "fused_compress": groups * exchanges}
+    out = {"fused_compress": groups * exchanges}
+    if layers:
+        per_step = 2 * (layers + 1) * args.steps * args.pods
+        out.update(ssm_scan=per_step + 2 * args.pods * exchanges, ssm_scan_bwd=per_step)
+    return out
+
+
+@contextlib.contextmanager
+def exchange_groups():
+    """Yield a list that gets the row-group count (``row_groups`` of its
+    leaves) of every message the LLM path hands ``compress_pytree``, read
+    from the message as the run built it."""
+    compress, counts = llm_steps.compress_pytree, []
+
+    def count(tree, *args, **kwargs):
+        counts.append(len(compress_kernels.row_groups(tree_leaves(tree))))
+        return compress(tree, *args, **kwargs)
+
+    llm_steps.compress_pytree = count
+    try:
+        yield counts
+    finally:
+        llm_steps.compress_pytree = compress
 
 
 def busy_share(run):
@@ -1727,42 +1814,53 @@ def busy_share(run):
 
 
 def check_train_cell(tag, device, args, cell, model=None, params=None, batch_fn=None,
-                     cli_argv=None):
-    """Phases 3n and 3o: fixed rounds of ``model`` at ``args``' cadence on
-    the card, the launch counters zeroed just before and read just after:
-    exactly the launches ``cell`` (an entry of TRAIN_CELLS) pins and no
-    other kernel (no flash); finite losses falling within every exchange
-    interval; steps/s, peak device memory. Through the CLI on ``cli_argv``
-    when it is given (the CLI's seed then draws the weights again
-    afterwards), else through ``LLMRoundRunner.run_fixed``. Then one more
-    round, timed and profiled, for the busy share."""
+                     cli_argv=None, hold_messages=False):
+    """Phases 3n, 3o and 3q: fixed rounds of ``model`` at ``args``' cadence
+    on the card, the launch counters zeroed just before and read just
+    after: exactly the launches ``cell`` (an entry of TRAIN_CELLS) pins and
+    no other kernel (no flash), every exchange message of the row groups it
+    pins (read from the message as the run built it); finite losses
+    falling within every exchange interval; steps/s, peak device memory.
+    Through the CLI on ``cli_argv`` when it is given (the CLI's seed then
+    draws the weights again afterwards), else through
+    ``LLMRoundRunner.run_fixed``. With ``hold_messages``, one more round
+    keeps its first exchange's row groups and holds the kernel against
+    plain on each (torch.equal), apart from the measured run so that the
+    kept copies add nothing to its peak. Then one more round, timed and
+    profiled, for the busy share."""
     layers, groups, pinned = cell
     want = train_launches(args, layers, groups)
     check(want == pinned, f"{tag}: launches derived {want}, pinned {pinned}")
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    if cli_argv is not None:
-        out, losses, _ = run_cli(cli_argv, run_llm)
-        torch.cuda.synchronize()
-        steps, wall_s = out["steps"], out["wall_s"]
-        peak = torch.cuda.max_memory_allocated()  # the CLI reset it after drawing the weights
-        _, model, params, batch_fn = build_llm(args, device)
-    else:
-        t0 = time.perf_counter()
-        params, losses = LLMRoundRunner(model, n_pods=args.pods).run_fixed(
-            params, batch_fn, args.steps, args.p, args.q, args.lr, args.compression_k,
-            args.quantization)
-        torch.cuda.synchronize()
-        steps, wall_s = len(losses), time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
+    with exchange_groups() as per_exchange:
+        if cli_argv is not None:
+            out, losses, _ = run_cli(cli_argv, run_llm)
+            torch.cuda.synchronize()
+            steps, wall_s = out["steps"], out["wall_s"]
+            peak = torch.cuda.max_memory_allocated()  # the CLI reset it after drawing the weights
+        else:
+            t0 = time.perf_counter()
+            params, losses = LLMRoundRunner(model, n_pods=args.pods).run_fixed(
+                params, batch_fn, args.steps, args.p, args.q, args.lr, args.compression_k,
+                args.quantization)
+            torch.cuda.synchronize()
+            steps, wall_s = len(losses), time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
     counts = dict(launch_counts)
+    if cli_argv is not None:
+        _, model, params, batch_fn = build_llm(args, device)
     falls = interval_falls(args, None, losses)
-    print(f"[{tag}] launches={counts} (pinned {pinned}) steps={steps} wall_s={wall_s} "
+    print(f"[{tag}] launches={counts} (pinned {pinned}) row groups by exchange={per_exchange} "
+          f"steps={steps} wall_s={wall_s} "
           f"steps/s={steps / wall_s} peak_device_bytes={peak} peak_device_GiB={peak / 2 ** 30} "
           f"allocated before the run={before} losses={losses.tolist()} (first, last) step of "
           f"each exchange interval: {falls}")
     check(counts == pinned, f"{tag}: launches {counts}, expected {pinned} and no other kernel")
+    exchanges = pinned["fused_compress"] // groups
+    check(per_exchange == [groups] * exchanges,
+          f"{tag}: row groups by exchange {per_exchange}, pinned {groups} in each of {exchanges}")
     check(bool(np.isfinite(losses).all()), f"{tag}: non-finite loss")
     check(falls and all(last < first for first, last in falls),
           f"{tag}: the loss did not fall within every exchange interval: {falls}")
@@ -1770,6 +1868,15 @@ def check_train_cell(tag, device, args, cell, model=None, params=None, batch_fn=
         args.p, args.q, args.compression_k, args.quantization, collect_stats=False)
     lam = args.p // args.q
     state = {"params": params}
+    msg_err = None
+    if hold_messages:
+        with kept_messages(limit=groups) as kept:
+            state["params"], _ = fn(state["params"], batch_fn(0, lam), args.lr)
+            torch.cuda.synchronize()
+        check(len(kept) == groups, f"{tag}: {len(kept)} row groups kept, {groups} pinned")
+        msg_err = check_path_messages(f"{tag} messages", kept, exact=True)
+        del kept
+        torch.cuda.empty_cache()
 
     def one_round():
         state["params"], _ = fn(state["params"], batch_fn(0, lam), args.lr)
@@ -1781,7 +1888,7 @@ def check_train_cell(tag, device, args, cell, model=None, params=None, batch_fn=
           f"{top}")
     del state, params
     return {"steps_per_s": steps / wall_s, "peak_device_bytes": peak, "busy_share": busy,
-            "kernels_per_step": kernels, "launches": counts,
+            "kernels_per_step": kernels, "launches": counts, "messages_max_abs_err": msg_err,
             "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
 
 
@@ -1807,6 +1914,150 @@ def check_ssm_training(device):
     del params
     torch.cuda.empty_cache()
     return summary
+
+
+@contextlib.contextmanager
+def encoder_spans():
+    """Yield a list that gets, for every ``T.seed_audio_caches`` call of a
+    run (the encoder and the cross K/V projection of a first prefill
+    block), the CUDA events recorded on the stream just before and just
+    after it; their elapsed time is the span of the prefill's device
+    timeline the encoder took. Read them after a synchronize."""
+    seed, spans = T.seed_audio_caches, []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = seed(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    T.seed_audio_caches = timed
+    try:
+        yield spans
+    finally:
+        T.seed_audio_caches = seed
+
+
+def check_audio_serving(device):
+    """Phase 3p: whisper-medium through the serve CLI at full width, with
+    fp32 and then int8 caches, the launch counters zeroed just before and
+    read just after: no kernel of the port, 4 x 32 tokens in [0, V),
+    prefill seconds, the encoder's share of them, ms a decode step, peak
+    device memory. Then 5 requests through 2 slots, each with its own
+    frames: every request's tokens equal ``sequential_generate``'s."""
+    cfg = get_config(AUDIO_ARCH)
+    out = {}
+    for cache in ("f32", "int8"):
+        argv = AUDIO_SERVE_ARGV + ["--cache-dtype", cache]
+        args = serve.parse_args(argv)
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        with encoder_spans() as spans:
+            report, tokens = run_serve_cli(argv)
+            torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        del report["requests"]
+        enc_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+        check(len(spans) == 1, f"audio serving ({cache}): the encoder ran {len(spans)} times")
+        print(f"[serve-audio] cache={cache} launches={counts} prefill_s={report['prefill_s']} "
+              f"encoder_s={enc_s} (the encoder and the cross K/V of {args.batch} x "
+              f"{cfg.encoder_seq} frames, CUDA events around them inside this prefill) "
+              f"encoder_share={enc_s / report['prefill_s']} "
+              f"ms_per_decode_step={report['ms_per_decode_step']} "
+              f"decode_tok_per_s={report['decode_tok_per_s']} "
+              f"executors={report['compiled_executors']} "
+              f"peak_device_bytes={report['peak_device_bytes']} "
+              f"peak_device_GiB={report['peak_device_bytes'] / 2 ** 30} "
+              f"init_s={report['init_s']} (weights of {cfg.param_count()} params drawn on the "
+              f"card)")
+        check(counts == {}, f"audio serving ({cache}): launches {counts}, expected no kernel of "
+                            f"the port (no flash at a 448-token context, no scan)")
+        check(report["generated_tokens"] == args.batch * args.gen,
+              f"audio serving ({cache}): generated {report['generated_tokens']} tokens")
+        check(len(tokens) == args.batch and all(
+            len(t) == args.gen and all(0 <= x < cfg.vocab_size for x in t) for t in tokens),
+            f"audio serving ({cache}): tokens out of [0, V)")
+        out[cache] = {k: report[k] for k in ("prefill_s", "ms_per_decode_step",
+                                             "decode_tok_per_s", "peak_device_bytes")}
+        out[cache].update(encoder_s=enc_s, encoder_share=enc_s / report["prefill_s"])
+        del report, tokens
+    params, _, _ = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n, _ in AUDIO_REQUESTS]
+    frames = rng.randn(len(prompts), cfg.encoder_seq, cfg.d_model).astype(np.float32)
+    engine = ServeEngine(cfg, params, max_batch=2, cache_dtype=torch.float32, decode_block=4)
+    rids = [engine.submit(p, n, f) for p, (_, n), f in zip(prompts, AUDIO_REQUESTS, frames)]
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_id = {r.rid: r.tokens for r in engine.done}
+    got = [by_id[r] for r in rids]
+    t0 = time.perf_counter()
+    want = [sequential_generate(cfg, params, p[None], n, extra_embeds=f[None])[0].tolist()
+            for p, (_, n), f in zip(prompts, AUDIO_REQUESTS, frames)]
+    seq_s = time.perf_counter() - t0
+    print(f"[serve-audio] {len(prompts)} requests (lengths, new tokens) {list(AUDIO_REQUESTS)} "
+          f"through 2 slots, each with its own frames: engine {wall} s, executors "
+          f"{engine.compile_counts()}, launches {dict(launch_counts)}; sequential_generate "
+          f"{seq_s} s; tokens {got}")
+    check(not launch_counts, f"audio serving: the 5-request run launched {dict(launch_counts)}")
+    check_same_tokens("serve-audio-slots", cfg, params, prompts, want, got, frames)
+    out["slots"] = {"engine_s": wall, "sequential_s": seq_s,
+                    "executors": engine.compile_counts()}
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_audio_training(device):
+    """Phase 3q: whisper-medium training at full width through the CLI
+    (``check_train_cell`` on TRAIN_CELLS' pins), the kernel held against
+    plain on one exchange's four row groups at the path's own shapes."""
+    argv = ["--arch", AUDIO_ARCH] + TRAIN_ARGV + ["--device", "cuda"]
+    out = check_train_cell("train-audio", device, parse_args(argv), TRAIN_CELLS[AUDIO_ARCH],
+                           cli_argv=argv, hold_messages=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_example_twins(device):
+    """Phase 3r: the twins of ``examples/train_100m_hsgd.py`` (adaptive, then
+    --fixed --q 4, 20 steps each) and ``examples/serve_batched.py`` on the
+    card, the launch counters zeroed before each and read after."""
+    out = {}
+    for tag, argv in (("adaptive", ["--steps", "20"]),
+                      ("fixed", ["--fixed", "--q", "4", "--steps", "20"])):
+        reset_launch_counts()
+        res = train_100m_hsgd.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        losses = res["losses"]
+        print(f"[example-100m-{tag}] steps={len(losses)} steps/s={res['steps_per_s']} "
+              f"wall_s={res['wall_s']} launches={counts} loss {float(losses[0])} -> "
+              f"{float(losses[-1])}")
+        check(len(losses) == 20 and bool(np.isfinite(losses).all()),
+              f"train_100m_hsgd {tag}: {len(losses)} steps, finite {np.isfinite(losses).all()}")
+        out[tag] = {"steps_per_s": res["steps_per_s"], "launches": counts,
+                    "rounds": None if res["history"] is None else len(res["history"])}
+        del res
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    res = serve_batched.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    load = res["load"]
+    print(f"[example-serve] launches={dict(launch_counts)} requests={load['requests']} "
+          f"tokens={load['generated_tokens']} sustained_tok_per_s="
+          f"{load['sustained_tokens_per_s']} first_token p50/p99 s={load['first_token_s']} "
+          f"serve tok/s={res['serve']['decode_tok_per_s']}")
+    check(load["requests"] == 16 and load["generated_tokens"] == 16 * 8,
+          f"serve_batched: {load['requests']} requests, {load['generated_tokens']} tokens")
+    out["serve_batched"] = {"sustained_tokens_per_s": load["sustained_tokens_per_s"],
+                            "first_token_s": load["first_token_s"]}
+    return out
 
 
 def main() -> int:
@@ -1853,12 +2104,13 @@ def main() -> int:
             max_err = max(max_err, res["max_abs_err"])
     check_edge_cases(device, dp=False)
     head_cmp = check_head_rows(device, bw, flops, dp=False)
+    audio_head_cmp = check_head_rows(device, bw, flops, dp=False, shape=AUDIO_HEAD_SHAPE)
 
     # -- phase 2b: the DP kernel against plain, bit for bit ------------------
     main_dp, max_err_dp = check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops, floor_ms)
     head_dp = check_head_rows(device, bw, flops, dp=True)
-    max_err, max_err_dp = max(max_err, head_cmp["max_abs_err"]), max(max_err_dp,
-                                                                      head_dp["max_abs_err"])
+    max_err = max(max_err, head_cmp["max_abs_err"], audio_head_cmp["max_abs_err"])
+    max_err_dp = max(max_err_dp, head_dp["max_abs_err"])
 
     # -- phase 2c: the flash-attention kernel against plain ------------------
     flash_main, max_err_flash = check_flash_kernel(device, name)
@@ -2018,6 +2270,14 @@ def main() -> int:
     train_summary = check_ssm_training(device)
     print(f"[train-summary] {json.dumps(train_summary)}")
 
+    # -- phases 3p, 3q, 3r: whisper-medium serving and training, the twins ----
+    audio_serve = check_audio_serving(device)
+    print(f"[audio-serve-summary] {json.dumps(audio_serve)}")
+    audio_train = check_audio_training(device)
+    print(f"[audio-train-summary] {json.dumps(audio_train)}")
+    twins = check_example_twins(device)
+    print(f"[twins-summary] {json.dumps(twins)}")
+
     # -- phase 4: the card against the CPU ---------------------------------
     on_cpu, on_card = same_start_losses(torch.device("cpu"), device)
     rel = float(((on_card - on_cpu).abs() / on_cpu.abs()).max())
@@ -2106,6 +2366,26 @@ def main() -> int:
         check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
               f"{arch} training: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
 
+    # -- phase 4j: the card against the CPU on whisper-medium -----------------
+    reset_launch_counts()
+    (lg_cpu, tok_cpu), (lg_card, tok_card) = serve_parity(
+        AUDIO_ARCH, AUDIO_PARITY_LEN, AUDIO_PARITY_GEN, torch.device("cpu"), device)
+    rel = float((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max())
+    print(f"[parity-serve-audio] launches on the card={dict(launch_counts)} logits max "
+          f"|card - cpu| / max |cpu| = {rel} tokens cpu={tok_cpu} cuda={tok_card}")
+    check(rel <= 1e-4, f"audio serving path: first-step logits differ by {rel} relative "
+                       f"(> 1e-4)")
+    check(tok_card == tok_cpu, "audio serving path: card and CPU greedy tokens differ")
+    reset_launch_counts()
+    l_cpu, l_card = same_start_llm(torch.device("cpu"), device, arch=AUDIO_ARCH)
+    rel = float(((l_card - l_cpu).abs() / l_cpu.abs()).max())
+    print(f"[parity-train-{AUDIO_ARCH}] launches on the card={dict(launch_counts)} "
+          f"cpu={l_cpu.tolist()} cuda={l_card.tolist()} max_rel_diff={rel}")
+    check(launch_counts["fused_compress"] > 0, "the card's audio training parity run skipped "
+                                               "the compress kernel")
+    check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
+          f"audio training: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
+
     # -- phase 4g: the card against the CPU on spec decode and the new configs -
     reset_launch_counts()
     (plain_cpu, spec_cpu), (plain_card, spec_card) = spec_parity(
@@ -2135,7 +2415,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/compress.cu",
         "replaces": "src/repro/kernels/compress.py:78",
-        "launches": counts["fused_compress"],
+        "launches": counts["fused_compress"] + audio_train["launches"]["fused_compress"] + sum(
+            t["launches"].get("fused_compress", 0) for t in twins.values() if "launches" in t),
         "max_abs_err": max_err,
         "ms": main_cmp["ms"],
         "plain_ms": main_cmp["plain_ms"],

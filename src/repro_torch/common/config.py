@@ -3,8 +3,9 @@ configuration (the paper's hyper-parameters).
 
 Same fields, defaults and validation errors as ``repro/common/config.py``.
 The registry holds the architectures the port runs (``repro_torch/configs``:
-the paper's CNN and LSTM, the dense family, Mamba-1 and the zamba2 hybrid);
-the reference's other architectures raise "not ported yet".
+the paper's CNN and LSTM, the dense family, Mamba-1, the zamba2 hybrid and
+the whisper encoder-decoder); the reference's MoE and VLM architectures
+raise "not ported yet".
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Any, Callable, Dict, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture description (all the reference's fields; the port runs
-    the dense, ssm and hybrid families)."""
+    the dense, ssm, hybrid and audio families)."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | audio | vlm | cnn | lstm
@@ -159,7 +160,7 @@ INPUT_SHAPES: Dict[str, InputShape] = {
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 # the reference's architectures that the port does not run yet
-UNPORTED_ARCHS = ("deepseek-v3-671b", "grok-1-314b", "qwen2-vl-72b", "whisper-medium")
+UNPORTED_ARCHS = ("deepseek-v3-671b", "grok-1-314b", "qwen2-vl-72b")
 
 
 def register_config(name: str, full: Callable[[], ModelConfig], smoke: Callable[[], ModelConfig]):

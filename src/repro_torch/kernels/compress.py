@@ -20,7 +20,11 @@ one matrix, padded to the widest of them, with a per-row valid length;
 each wider width in a matrix of its own, unpadded. Each group is one
 launch: a paper model's whole exchange message (θ0 + ζ1 + ζ2, rows of at
 most 128 floats) is one, an LLM's message one per width past
-``NARROW_WIDTH``, and no matrix is much larger than the message. The DP
+``NARROW_WIDTH``. Where padding the narrow rows to the widest of them
+would add more than ``NARROW_PAD_BYTES`` and more floats than they hold
+(whisper-medium's 64-wide attention rows beside its 1024-wide ones: 14 GB
+a pod for 2.4 GB of values), each narrow width gets a matrix of its own
+too, so no matrix is much larger than the message. The DP
 noise rows are drawn on the device from the caller's generator, group by
 group, or handed in.
 """
@@ -40,6 +44,16 @@ from repro_torch.kernels.build import load
 # Rows of at most this many floats share one matrix (the register bodies);
 # each wider width gets one of its own.
 NARROW_WIDTH = 1024
+# ...unless padding them to the widest of them would add more than this many
+# bytes of fp32 and more floats than they hold; then each narrow width gets
+# one of its own. Two pods' messages: whisper-medium's 64-wide rows would
+# pad to 1024 with 27 GB for 4.9 GB of values (split); falcon-mamba-7b's
+# 16-wide rows pad to 288 with fewer floats than they hold at any depth
+# (0.29 GB for 0.32 GB at 16 layers, 1.1 for 1.3 at 64: one launch);
+# the other LLMs' narrow rows share one width. The floor keeps a small
+# message (a paper model's, any smoke width's) in one launch whatever its
+# padding.
+NARROW_PAD_BYTES = 1 << 30
 # The kernels index a row's columns with int, stepping by up to a block.
 MAX_ROW_WIDTH = 2 ** 31 - 1 - 256
 
@@ -160,12 +174,23 @@ def row_groups(leaves):
     lists of leaf indices: the leaves of width <= ``NARROW_WIDTH`` in one
     group (padded to the widest of them by ``stack_rows``), then one group
     for each wider width, in increasing width. No leaf is padded past
-    ``NARROW_WIDTH``."""
+    ``NARROW_WIDTH``; if the narrow group's padding would take more than
+    ``NARROW_PAD_BYTES`` and more floats than its values, its leaves are
+    grouped by width too."""
     widths = [leaf_width(leaf) for leaf in leaves]
+
+    def by_width(members):
+        return [[i for i in members if widths[i] == w]
+                for w in sorted({widths[i] for i in members})]
+
     narrow = [i for i, n in enumerate(widths) if n <= NARROW_WIDTH]
-    wide = [[i for i, n in enumerate(widths) if n == w]
-            for w in sorted({n for n in widths if n > NARROW_WIDTH})]
-    return ([narrow] if narrow else []) + wide
+    wide = by_width([i for i, n in enumerate(widths) if n > NARROW_WIDTH])
+    if not narrow:
+        return wide
+    n_max = max(widths[i] for i in narrow)
+    pad = sum(leaves[i].numel() // widths[i] * (n_max - widths[i]) for i in narrow)
+    split = 4 * pad > NARROW_PAD_BYTES and pad > sum(leaves[i].numel() for i in narrow)
+    return (by_width(narrow) if split else [narrow]) + wide
 
 
 def compress_pytree(tree, k_frac: float, levels: int = 0, dp_clip=None, dp_sigma=None,

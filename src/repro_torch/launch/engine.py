@@ -2,7 +2,7 @@
 
 The trained global model θ̃ is what e-health institutions serve back to
 devices and clinicians. This is the port of ``repro/launch/engine.py`` for
-the dense, ssm and hybrid families. Its executors are Python closures cached per shape
+the dense, ssm, hybrid and audio families. Its executors are Python closures cached per shape
 bucket under the reference's keys, as the reference caches one jitted
 program per bucket; ``compile_counts`` reports the caches' sizes under the
 reference's names.
@@ -15,7 +15,11 @@ reference's names.
   its attention goes through the hand-written flash kernel on the card.
   The hybrid family's ring-buffer KV caches (``_attn_ring_len``) take
   blocks only into ring slots not yet written; past the ring's edge the
-  prompt goes one token at a time.
+  prompt goes one token at a time. For the audio family (whisper) the first
+  block also runs the encoder over each request's frames
+  (``Request.extra_embeds``) and seeds the cross-attention K/V caches
+  (``T.seed_audio_caches``); later blocks and decode never touch the
+  encoder.
   Only the block's last position is unembedded: the engine samples from it
   alone, and at gemma3's V = 262144 the full [B, S, V] logits of a 4096
   token block would take 8.6 GB.
@@ -24,9 +28,11 @@ reference's names.
   cache write drops), with ONE host sync per block, when the scheduler
   collects the block's tokens.
 * **insert** — continuous batching: one executor copies a prefilled
-  group's rows of every cache group (``"kv"``, ``"ssm"``; the hybrid
-  family has both, stacked over super-blocks and layers) into freed decode
-  slots; pad rows carry ``dst == max_batch`` and are dropped.
+  group's rows of every cache group (``"kv"``, ``"ssm"``, ``"cross"``; the
+  hybrid family has the first two, stacked over super-blocks and layers,
+  the audio family ``"kv"`` and ``"cross"``, each with its batch on axis 1)
+  into freed decode slots; pad rows carry ``dst == max_batch`` and are
+  dropped.
 * **spec** (opt-in via ``spec_gamma``, dense family) — self-speculative
   decoding: each round drafts γ tokens with the first ``spec_draft_layers``
   layers (``T.draft_decode_step``) and verifies them with ONE full-model
@@ -111,6 +117,7 @@ class Request:
     rid: int
     prompt: np.ndarray  # [S] int32
     max_new: int
+    extra_embeds: Optional[np.ndarray] = None  # audio: [enc_seq, d_model]
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_first: float = 0.0
@@ -182,16 +189,22 @@ class ServeEngine:
 
     # -- submission ---------------------------------------------------------
 
-    def submit(self, prompt, max_new: int) -> int:
+    def submit(self, prompt, max_new: int, extra_embeds=None) -> int:
+        """Queue a request; the audio family needs its frames
+        ``extra_embeds`` [enc_seq, d_model]."""
+        if self.cfg.family == "audio" and extra_embeds is None:
+            raise ValueError("an audio request needs its frames (extra_embeds)")
         r = Request(self._next_rid, np.asarray(prompt, np.int32), int(max_new),
+                    None if extra_embeds is None else np.asarray(extra_embeds, np.float32),
                     t_submit=time.perf_counter())
         self._next_rid += 1
         self.waiting.append(r)
         return r.rid
 
-    def generate(self, prompts, max_new: int):
+    def generate(self, prompts, max_new: int, extra_embeds=None):
         """Submit a batch, drain it, return (tokens per request, report)."""
-        rids = [self.submit(p, max_new) for p in prompts]
+        rids = [self.submit(p, max_new, None if extra_embeds is None else extra_embeds[i])
+                for i, p in enumerate(prompts)]
         report = self.run()
         by_id = {r.rid: r for r in self.done}
         return [by_id[rid].tokens for rid in rids], report
@@ -205,10 +218,13 @@ class ServeEngine:
             cfg, dtype, device, gen = self.cfg, self.cache_dtype, self.device, self.generator
             self._builds["prefill"] += 1
             if first:
-                # the FIRST block builds its own zero caches and attends
-                # within itself (fresh_cache): the flash kernel's route
-                def serve_prefill_first(params, tokens, temperature):
+                # the FIRST block builds its own zero caches, runs the audio
+                # encoder when the family has one, and attends within itself
+                # (fresh_cache): the flash kernel's route
+                def serve_prefill_first(params, tokens, temperature, enc_embeds=None):
                     caches = T.init_decode_caches(cfg, Bp, cache_len, dtype, device)
+                    if cfg.family == "audio":
+                        caches = T.seed_audio_caches(cfg, params, caches, enc_embeds)
                     hidden, caches = T.decode_hidden(cfg, params, tokens, caches, 0,
                                                      fresh_cache=True)
                     logits = T.logits_from_hidden(cfg, params, hidden[:, -1])
@@ -372,7 +388,8 @@ class ServeEngine:
 
     def _prefix_enabled(self) -> bool:
         # attention families only: their cache rows are pure positional K/V;
-        # a recurrent state entangles the whole prefix
+        # a recurrent state entangles the whole prefix, and the audio cross
+        # K/V depend on each request's frames
         return self.prefix_cache and self.cfg.family in ("dense", "vlm", "moe")
 
     def _prefix_len(self, S: int) -> int:
@@ -444,6 +461,11 @@ class ServeEngine:
             toks[i] = r.prompt
         toks[len(group):] = toks[0]  # pad rows replay request 0; discarded
         toks_dev = torch.from_numpy(toks).to(self.device)
+        emb = None
+        if self.cfg.family == "audio":
+            emb = torch.from_numpy(np.stack(
+                [r.extra_embeds for r in group]
+                + [group[0].extra_embeds] * (Bp - len(group)))).to(self.device)
         ring = self._attn_ring_len(cache_len)
         idx, tok, caches = 0, None, None
         harvest_p = 0
@@ -466,7 +488,7 @@ class ServeEngine:
             fn = self._prefill_fn(Bp, blk, first, cache_len)
             tb = toks_dev[:, idx: idx + blk]
             if first:
-                tok, caches = fn(self.params, tb, self.temperature)
+                tok, caches = fn(self.params, tb, self.temperature, emb)
             else:
                 tok, caches = fn(self.params, caches, tb, idx, self.temperature)
             idx += blk
@@ -670,12 +692,16 @@ def _as_tokens(prompts, device):
 
 
 def sequential_prefill(cfg: ModelConfig, params, prompts, cache_len: int,
-                       cache_dtype=torch.float32, step=None):
-    """Token-by-token prefill through ``decode_step`` (S forwards)."""
+                       extra_embeds=None, cache_dtype=torch.float32, step=None):
+    """Token-by-token prefill through ``decode_step`` (S forwards), after the
+    audio family's encoder over ``extra_embeds`` [B, enc_seq, d_model]."""
     device = params["embed"]["table"].device
     prompts = _as_tokens(prompts, device)
     B, S = prompts.shape
     caches = T.init_decode_caches(cfg, B, cache_len, parse_cache_dtype(cache_dtype), device)
+    if cfg.family == "audio":
+        enc = torch.as_tensor(np.asarray(extra_embeds, np.float32), device=device)
+        caches = T.seed_audio_caches(cfg, params, caches, enc)
     step = step or sequential_step_fn(cfg)
     logits = None
     for i in range(S):
@@ -700,13 +726,13 @@ def sequential_decode(cfg: ModelConfig, params, logits, caches, start_pos: int,
 
 
 def sequential_generate(cfg: ModelConfig, params, prompts, gen: int,
-                        temperature: float = 0.0, seed: int = 0,
+                        temperature: float = 0.0, seed: int = 0, extra_embeds=None,
                         cache_dtype=torch.float32, cache_len: Optional[int] = None,
                         step=None):
     """Token-by-token prefill and decode: [B, gen] int32 tokens on the CPU."""
     B, S = np.asarray(prompts).shape
     cache_len = cache_len or (S + gen)
     step = step or sequential_step_fn(cfg)
-    logits, caches = sequential_prefill(cfg, params, prompts, cache_len, cache_dtype,
-                                        step=step)
+    logits, caches = sequential_prefill(cfg, params, prompts, cache_len, extra_embeds,
+                                        cache_dtype, step=step)
     return sequential_decode(cfg, params, logits, caches, S, gen, temperature, seed, step=step)

@@ -186,7 +186,7 @@ def run(args):
     engine keeps its finished requests (``engine.done``) and parameters."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    params, _ = build_inputs(cfg, 1, args.prompt_len, args.seed, device)
+    params, _, _ = build_inputs(cfg, 1, args.prompt_len, args.seed, device)
     if args.trace:
         trace = load_trace(args.trace)
     else:

@@ -8,6 +8,8 @@
       --arch zamba2-2.7b --full --batch 2 --prompt-len 2080 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch gemma3-1b --full --batch 2 --prompt-len 4096 --gen 32 --spec-gamma 4
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch whisper-medium --full --batch 4 --prompt-len 416 --gen 32
 
 Takes the flags of ``repro_torch.launch.serve`` (``--spec-gamma``,
 ``--spec-draft-layers`` and ``--prefix-cache`` included) and needs a CUDA
@@ -97,16 +99,17 @@ def main(argv=None):
     if device.type != "cuda":
         raise SystemExit("profile_serve measures the card: run it with --device cuda")
     cfg = get_config(args.arch, smoke=args.smoke)
-    params, prompts = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+    params, prompts, extra = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed,
+                                                device)
     engine = serve.build_engine(cfg, params, args)
 
     def requests(gen):
-        return lambda: engine.generate(list(prompts), gen)
+        return lambda: engine.generate(list(prompts), gen, extra_embeds=extra)
 
     requests(args.gen)()  # warm-up: cuBLAS handles, the allocator, the kernel build
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, rep = engine.generate(list(prompts), args.gen)
+    _, rep = requests(args.gen)()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = {

@@ -14,6 +14,8 @@ card unless ``--device cpu`` is given.
       --batch 2 --prompt-len 2080 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \
       --batch 2 --prompt-len 4096 --gen 32 --spec-gamma 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --full \
+      --batch 4 --prompt-len 416 --gen 32 [--cache-dtype int8]
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch gemma3-1b \
       --batch 2 --prompt-len 32 --gen 8 [--spec-gamma 2] [--prefix-cache]
 """
@@ -38,17 +40,22 @@ NOT_PORTED = "not ported yet"
 
 
 def build_inputs(cfg, batch: int, prompt_len: int, seed: int = 0, device="cpu"):
-    """(params, prompts) for a serve run. The prompts are the
-    reference's (``np.random.RandomState(seed)``); the params come from the
-    port's ``init_params`` with a generator seeded with ``seed`` on
-    ``device`` itself, so they are not the reference's, and on the card
-    they differ from the CPU's (a full-width model is drawn there rather
-    than on one CPU generator; ``chip_smoke.py`` phase 3e times both)."""
+    """(params, prompts, extra_embeds) for a serve run. The prompts, and
+    the audio family's frames [batch, encoder_seq, d] (None for the other
+    families), are the reference's (one ``np.random.RandomState(seed)``,
+    the frames drawn after the prompts); the params come from the port's
+    ``init_params`` with a generator seeded with ``seed`` on ``device``
+    itself, so they are not the reference's, and on the card they differ
+    from the CPU's (a full-width model is drawn there rather than on one
+    CPU generator; ``chip_smoke.py`` phase 3e times both)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params = L.init_params(T.model_specs(cfg), gen, torch.float32, device)
     rng = np.random.RandomState(seed)
     prompts = rng.randint(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
-    return params, prompts
+    extra = None
+    if cfg.family == "audio":
+        extra = rng.randn(batch, cfg.encoder_seq, cfg.d_model).astype(np.float32)
+    return params, prompts, extra
 
 
 def parse_args(argv=None):
@@ -103,7 +110,7 @@ def run(args):
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     t0 = time.perf_counter()
-    params, prompts = build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+    params, prompts, extra = build_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -113,7 +120,7 @@ def run(args):
         step = sequential_step_fn(cfg)
         t0 = time.perf_counter()
         logits, caches = sequential_prefill(cfg, params, prompts, args.prompt_len + args.gen,
-                                            args.cache_dtype, step=step)
+                                            extra, args.cache_dtype, step=step)
         logits.cpu()  # wait for the prefill
         t_prefill = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -133,7 +140,7 @@ def run(args):
         tokens = toks.tolist()
     else:
         engine = build_engine(cfg, params, args)
-        tokens, rep = engine.generate(list(prompts), args.gen)
+        tokens, rep = engine.generate(list(prompts), args.gen, extra_embeds=extra)
         prefill_s = max((r["prefill_s"] for r in rep["requests"]), default=0.0)
         decode_s = max(rep["wall_s"] - prefill_s, 1e-9)
         report = {

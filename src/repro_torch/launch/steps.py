@@ -197,6 +197,22 @@ def make_exchange_step(model: HybridModel, compression_k: float = 0.0, quant: in
     return exchange
 
 
+def message_specs(params, batch):
+    """One exchange's pod-stacked message {θ0, ζ1, ζ2} as meta tensors of
+    the shapes ``make_exchange_step`` hands ``compress_pytree``: θ0 as
+    ``params`` holds it ([G, ...] leaves); ζ1 and ζ2 [G, B, S_tower, d],
+    with G, B and each tower's S (the frames, for the audio family) from
+    the batch's [Λ, G, B, S, ...] leaves and d from the towers' final
+    norm."""
+    d = params["theta1"]["norm"]["scale"].shape[-1]
+
+    def z(x):
+        return torch.empty(tuple(x.shape[1:4]) + (d,), device="meta")
+
+    return {"theta0": tree_map(lambda t: torch.empty(t.shape, device="meta"), params["theta0"]),
+            "z1": z(batch["x1"]), "z2": z(batch["x2"])}
+
+
 def make_global_agg():
     """Eq. (2) over the leading group (pod) dim: mean + broadcast back,
     written into ``params``.
@@ -443,14 +459,12 @@ class AdaptiveLLMRunner:
         self.fed = FederationConfig(num_groups=n_pods, devices_per_group=1, alpha=1.0)
 
     def _sizes_of(self, params, batch):
-        """``sizes_of(k, b)`` governor callback. ζ1/ζ2 are [B, S_tower, d]
-        per pod: B and S_tower from the batch's [Λ, G, B, S, ...] leaves, d
-        from the towers' final norm."""
+        """``sizes_of(k, b)`` governor callback, ζ1/ζ2 per pod from
+        ``message_specs``."""
         pod_shapes = tree_map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
                               params)
-        d = params["theta1"]["norm"]["scale"].shape[-1]
-        z1_el = int(np.prod(batch["x1"].shape[2:4])) * d
-        z2_el = int(np.prod(batch["x2"].shape[2:4])) * d
+        msg = message_specs(params, batch)
+        z1_el, z2_el = msg["z1"][0].numel(), msg["z2"][0].numel()
 
         def sizes_of(k_frac: float, levels: int):
             return CM.message_sizes(pod_shapes, z1_el, z2_el, self.fed.sampled_devices,

@@ -8,11 +8,12 @@ A ``HybridModel`` exposes exactly the objects Algorithm 1 manipulates:
 Instantiations:
   * cnn_hybrid / lstm_hybrid — the paper's own e-health models, with the
     exact vertical feature split of §VII-A.
-  * llm_hybrid — the assigned LLM-scale architectures, text arm (the dense
-    family): the hospital and the device each hold a segment of the
-    sequence, their towers are ``n_tower`` blocks at full width, and the
-    combined model is the architecture's backbone + an untied head. The
-    audio and VLM arms are not ported yet.
+  * llm_hybrid — the assigned LLM-scale architectures: in the text arm
+    the hospital and the device each hold a segment of the sequence; in the
+    audio arm (whisper) the hospital holds the audio frames and the device
+    the decoder's tokens. The towers are ``n_tower`` blocks at full width,
+    and the combined model is the architecture's backbone (whisper's
+    encoder-decoder) + an untied head. The VLM arm is not ported yet.
 """
 from __future__ import annotations
 
@@ -175,12 +176,18 @@ def _tower_forward(tcfg: ModelConfig, params, x_or_tokens, remat=True):
 
 
 def llm_hybrid(cfg: ModelConfig, n_tower: int = 2, remat: bool = True) -> HybridModel:
-    """Wrap an assigned architecture into the paper's hybrid decomposition:
-    the text arm (the hospital and the device towers each embed a segment
-    of the token sequence). The audio and VLM arms raise."""
-    if cfg.family in ("audio", "vlm"):
+    """Wrap an assigned architecture into the paper's hybrid decomposition.
+
+    Text arm: the hospital and the device towers each embed a segment of
+    the token sequence. Audio arm: the hospital tower has no embedding and
+    runs over the float frames [B, Se, d]; as in the reference it is a
+    dense tower (``_tower_cfg``), causal and with RoPE over the frames. Its
+    ζ1 is the encoder's input and the device tower's ζ2 the decoder's. The
+    VLM arm raises."""
+    if cfg.family == "vlm":
         raise NotImplementedError(f"the {cfg.family!r} arm of llm_hybrid is not ported yet")
-    s1, tcfg1 = _tower_stack_specs(cfg, n_tower, with_embed=True)
+    # hospital tower: audio frames for whisper, a token segment otherwise
+    s1, tcfg1 = _tower_stack_specs(cfg, n_tower, with_embed=cfg.family != "audio")
     s2, tcfg2 = _tower_stack_specs(cfg, n_tower, with_embed=True)
 
     specs0 = T.model_specs(cfg)
@@ -194,15 +201,19 @@ def llm_hybrid(cfg: ModelConfig, n_tower: int = 2, remat: bool = True) -> Hybrid
         return _tower_forward(tcfg2, t2, x2, remat)
 
     def hidden_fn(t0, z1, z2):
-        x = torch.cat([z1.to(z2.dtype), z2], dim=1)
-        x, _ = T.backbone_forward(cfg, t0, x, remat=remat)
+        if cfg.family == "audio":
+            x = T.audio_forward(t0, z2, z1, cfg, remat)
+        else:
+            x = torch.cat([z1.to(z2.dtype), z2], dim=1)
+            x, _ = T.backbone_forward(cfg, t0, x, remat=remat)
         return L.apply_norm(cfg.norm, t0["final_norm"], x)
 
     def predict(t0, z1, z2):
         return L.dense(t0["head"], hidden_fn(t0, z1, z2))
 
     def loss(t0, z1, z2, y):
-        # labels cover the token region (hospital + device segments)
+        # labels cover the token region (hospital + device segments; the
+        # decoder's tokens for audio)
         hidden = hidden_fn(t0, z1, z2)[:, -y.shape[1]:]
         # fused chunked head + cross-entropy: the full logits never materialize
         head_cfg = cfg.replace(tie_embeddings=False)

@@ -1,4 +1,4 @@
-"""Model assembly, the dense, ssm and hybrid families (``repro/models/transformer.py``).
+"""Model assembly, the dense, ssm, hybrid and audio families (``repro/models/transformer.py``).
 
 Layer parameters stay stacked along a leading layer dimension, so the
 reference's parameter tree maps onto the port's leaf for leaf; where the
@@ -12,12 +12,18 @@ cache tensors it was given, updated — the dense family's KV caches under
 ``"kv"``, the ssm family's (conv, h) states under ``"ssm"``, and the hybrid
 family's (zamba2) both: the Mamba-2 states of every layer under ``"ssm"``
 and, under ``"kv"``, one ring-buffer KV cache a super-block for its shared
-attention block. ``draft_decode_step`` runs the first layers of the dense
-stack alone, the self-speculative draft. The MoE, audio and VLM families
-raise "not ported yet".
+attention block. The audio family (whisper) keeps its decoder's KV caches
+under ``"kv"`` and, under ``"cross"``, every layer's cross-attention K/V,
+projected once from the encoder output (``seed_audio_caches``) and only
+read by decode. ``draft_decode_step`` runs the first layers of the dense
+stack alone, the self-speculative draft. The MoE and VLM families raise
+"not ported yet".
+
+As in the reference, ``forward`` does not scale the audio family's token
+embedding by sqrt(d), while ``decode_step`` scales every family's.
 
 The train path (``forward``, ``backbone_forward``, ``lm_loss``) runs the
-dense, ssm and hybrid families under autograd (the scan's gradient is
+dense, ssm, hybrid and audio families under autograd (the scan's gradient is
 ``kernels/ssm_scan.py::SSMScan``); ``remat`` wraps each layer, and each
 chunk of the fused head + cross-entropy, in ``torch.utils.checkpoint`` where
 the reference has ``jax.checkpoint``. The hybrid family's shared block is
@@ -37,9 +43,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.mlp import mlp_forward, mlp_specs
-from repro_torch.models.quant import is_int8
+from repro_torch.models.quant import dequantize_rows, is_int8, quantize_rows
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "audio")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -53,7 +59,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> Dict:
-    """kind: attn_mlp | mamba (attn_moe | encdec are not ported yet)."""
+    """kind: attn_mlp | mamba (attn_moe is not ported yet). The audio
+    family's encoder, decoder and cross blocks are all attn_mlp blocks."""
     d = cfg.d_model
     if kind == "mamba":
         return {"norm": L.norm_specs(cfg.norm, d), "mamba": SSM.mamba_specs(cfg)}
@@ -258,9 +265,13 @@ def layer_windows(cfg: ModelConfig, n_layers: int, force_window: bool = False) -
 def model_specs(cfg: ModelConfig) -> Dict:
     _require_ported(cfg)
     d = cfg.d_model
-    kind = "attn_mlp" if cfg.family == "dense" else "mamba"
+    kind = "mamba" if cfg.family in ("ssm", "hybrid") else "attn_mlp"
     s: Dict = {"embed": L.embed_specs(cfg.vocab_size, d),
-               "layers": stack_specs(cfg, cfg.num_layers, kind)}
+               "layers": stack_specs(cfg, cfg.num_layers, kind)}  # audio: the decoder's
+    if cfg.family == "audio":
+        s["enc_layers"] = stack_specs(cfg, cfg.encoder_layers, "attn_mlp")
+        s["enc_norm"] = L.norm_specs(cfg.norm, d)
+        s["cross_layers"] = stack_specs(cfg, cfg.num_layers, "attn_mlp")  # cross-attn + mlp
     if cfg.family == "hybrid":
         s["shared_attn"] = block_specs(cfg, "attn_mlp")  # zamba2 shared block
     s["final_norm"] = L.norm_specs(cfg.norm, d)
@@ -296,11 +307,16 @@ def _embed_scale(cfg: ModelConfig, dtype) -> float:
 
 def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None, remat: bool = True,
             force_window: bool = False):
-    """Training/prefill forward -> (hidden [B, S, D], aux_loss): the dense
-    family (the audio and VLM front ends are not ported yet)."""
-    if cfg.family in ("vlm", "audio") or extra_embeds is not None:
+    """Training/prefill forward -> (hidden [B, S, D], aux_loss). The audio
+    family's ``extra_embeds`` are the encoder's frame embeddings [B, Se, D];
+    its token embedding is not scaled by sqrt(d), as in the reference (the
+    VLM front end is not ported yet)."""
+    if cfg.family == "vlm":
         raise NotImplementedError(f"the {cfg.family!r} family's front end is not ported yet")
     x = L.embed(params["embed"], tokens)
+    if cfg.family == "audio":
+        x = audio_forward(params, x, extra_embeds, cfg, remat)
+        return L.apply_norm(cfg.norm, params["final_norm"], x), torch.zeros((), device=x.device)
     x = x * _embed_scale(cfg, x.dtype)
     x, aux = backbone_forward(cfg, params, x, remat=remat, force_window=force_window)
     return L.apply_norm(cfg.norm, params["final_norm"], x), aux
@@ -309,9 +325,12 @@ def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None, remat: bool 
 def backbone_forward(cfg: ModelConfig, params, x, *, remat=True, force_window=False,
                      positions_3d=None):
     """Run the layer stack over already-embedded inputs x [B, S, D] ->
-    (x, aux). The dense, ssm and hybrid families; the others raise "not
-    ported yet"."""
+    (x, aux). The dense, ssm and hybrid families; the audio family has no
+    single stack (``audio_forward``) and raises ``ValueError``, as in the
+    reference; the others raise "not ported yet"."""
     _require_ported(cfg)
+    if cfg.family == "audio":
+        raise ValueError(cfg.family)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     windows = layer_windows(cfg, cfg.num_layers, force_window)
@@ -322,6 +341,129 @@ def backbone_forward(cfg: ModelConfig, params, x, *, remat=True, force_window=Fa
     else:
         x = hybrid_forward(params, x, positions, cfg, windows, remat, force_window)
     return x, torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# The audio family: whisper's encoder and cross-attention
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(params, xq, xkv, cfg):
+    """Unmasked attention of ``xq``'s queries over ``xkv``'s keys and values
+    (no RoPE, so no positions)."""
+    return cross_attention_cached(params, xq, A._project(xkv, params["wk"]),
+                                  A._project(xkv, params["wv"]), cfg)
+
+
+def cross_attention_cached(params, xq, k, v, cfg):
+    """Cross-attention against pre-projected encoder K/V ([B, Se, KH, hd]),
+    with the reference's zero fp32 bias [B, Sq, Se]: only the query
+    projection runs a decode step."""
+    hd = cfg.resolved_head_dim
+    q = A._project(xq, params["wq"])
+    bias = torch.zeros((xq.shape[0], xq.shape[1], k.shape[1]), dtype=torch.float32,
+                       device=xq.device)
+    out = A._sdpa(q, k.to(xq.dtype), v.to(xq.dtype), bias, hd ** -0.5)
+    B, S = out.shape[:2]
+    wo = params["wo"].to(out.dtype)
+    return torch.matmul(out.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))  # bshk,hkd->bsd
+
+
+def _cross_block(cfg, p, x, attend):
+    """An attention + MLP block whose attention is ``attend(p["attn"],
+    normed x)``: the encoder's and the decoder's cross blocks."""
+    x = x + attend(p["attn"], L.apply_norm(cfg.norm, p["norm1"], x))
+    h = L.apply_norm(cfg.norm, p["norm2"], x)
+    return x + mlp_forward(p["mlp"], h, cfg)
+
+
+def encode_audio(cfg: ModelConfig, params, enc_embeds, remat: bool = False):
+    """whisper's encoder over the stubbed frame embeddings [B, Se, D] ->
+    [B, Se, D]: bidirectional self-attention (cross-attention of the frames
+    with themselves) and an MLP a layer, then ``enc_norm``. The training
+    forward (``audio_forward``) and the serving prefill
+    (``seed_audio_caches``) both run it."""
+
+    def body(h, p):
+        # bidirectional self-attention == unmasked cross-attention with itself
+        return _cross_block(cfg, p, h, lambda a, hn: cross_attention(a, hn, hn, cfg))
+
+    body = _remat(body, remat)
+    x = enc_embeds
+    for p in _unbind_layers(params["enc_layers"]):
+        x = body(x, p)
+    return L.apply_norm(cfg.norm, params["enc_norm"], x)
+
+
+def audio_forward(params, dec_tokens_embedded, enc_embeds, cfg: ModelConfig,
+                  remat: bool = True):
+    """whisper: the encoder over the frames, then a decoder layer's causal
+    self-attention block (``gqa_forward(window=0)``, its positions counting
+    from 0, as in the reference) followed by its cross block over the
+    encoder output."""
+    x = dec_tokens_embedded
+    B, Sd = x.shape[0], x.shape[1]
+    enc = encode_audio(cfg, params, enc_embeds.to(x.dtype), remat)
+    dpos = torch.arange(Sd, dtype=torch.int32, device=x.device).expand(B, Sd)
+
+    def body(h, p_self, p_cross):
+        h, _ = attn_mlp_block(p_self, h, dpos, cfg, 0)
+        return _cross_block(cfg, p_cross, h, lambda a, hn: cross_attention(a, hn, enc, cfg))
+
+    body = _remat(body, remat)
+    for p_self, p_cross in zip(_unbind_layers(params["layers"]),
+                               _unbind_layers(params["cross_layers"])):
+        x = body(x, p_self, p_cross)
+    return x
+
+
+def audio_cross_kv(cfg: ModelConfig, params, enc):
+    """The encoder output [B, Se, D] projected to every layer's cross K/V,
+    each [L, B, Se, KH, hd], by one einsum over the layer-stacked weights."""
+    wk = params["cross_layers"]["attn"]["wk"]
+    wv = params["cross_layers"]["attn"]["wv"]
+    k = torch.einsum("bsd,ldhk->lbshk", enc, wk.to(enc.dtype))
+    v = torch.einsum("bsd,ldhk->lbshk", enc, wv.to(enc.dtype))
+    return k, v
+
+
+def seed_audio_caches(cfg: ModelConfig, params, caches, enc_embeds):
+    """Run the encoder and write the read-only ``cross`` cache leaves in
+    place: quantized a row under the int8 layout (4 leaves: codes, codes,
+    scales, scales), else cast to the cache dtype. Returns ``caches``."""
+    enc = encode_audio(cfg, params, enc_embeds)
+    k, v = audio_cross_kv(cfg, params, enc)
+    del enc
+    cross = caches["cross"]
+    if len(cross) == 4:
+        (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
+        new = (kq, vq, ks, vs)
+    else:
+        new = (k, v)
+    for dst, src in zip(cross, new):
+        dst.copy_(src)
+    return caches
+
+
+def audio_decode(cfg: ModelConfig, params, x, positions, caches, index, fresh_cache=False):
+    """``_audio_decode``: each decoder layer's causal self-attention over its
+    KV cache (written in place; ``fresh_cache`` as the dense family takes
+    it), its MLP, then cross-attention over the layer's read-only cross K/V
+    (dequantized under int8) and the cross block's MLP. The cross leaves
+    are returned unchanged."""
+    cross, kv = caches["cross"], caches["kv"]
+    for i in range(cfg.num_layers):
+        if len(cross) == 4:
+            ck = dequantize_rows(cross[0][i], cross[2][i], x.dtype)
+            cv = dequantize_rows(cross[1][i], cross[3][i], x.dtype)
+        else:
+            ck, cv = cross[0][i], cross[1][i]
+        x, _ = attn_mlp_block(layer_params(params["layers"], i), x, positions, cfg, 0,
+                              kv_cache=tuple(c[i] for c in kv), cache_index=index,
+                              fresh_cache=fresh_cache)
+        x = _cross_block(cfg, layer_params(params["cross_layers"], i), x,
+                         lambda a, hn: cross_attention_cached(a, hn, ck, cv, cfg))
+    return x, caches
 
 
 def logits_from_hidden(cfg: ModelConfig, params, hidden):
@@ -397,7 +539,10 @@ def make_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch
     dtype (the recurrence is precision-sensitive) and take the quantized
     layout under int8, as the reference's do. The hybrid family has both
     groups: ``"ssm"`` stacked over every layer, ``"kv"`` over the
-    super-blocks, at ring length ``min(cache_len, sliding_window)``.
+    super-blocks, at ring length ``min(cache_len, sliding_window)``. The
+    audio family has its decoder's ``"kv"`` and the ``"cross"`` K/V, each
+    [L, B, Se, KH, hd] in the cache dtype, plus their [L, B, Se, KH] fp32
+    scales under int8.
     """
     _require_ported(cfg)
 
@@ -410,9 +555,17 @@ def make_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch
     if cfg.family in ("ssm", "hybrid"):
         sdtype = dtype if is_int8(dtype) else torch.float32
         groups["ssm"] = stacked(cfg.num_layers, SSM.mamba_state_specs(cfg, batch, sdtype))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "audio"):
         groups["kv"] = stacked(cfg.num_layers,
                                A.make_kv_cache_specs(cfg, batch, cache_len, dtype))
+    if cfg.family == "audio":
+        KH, hd, Se = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.encoder_seq
+        shapes = [A.CacheSpec((batch, Se, KH, hd), dtype)] * 2
+        axes = [("batch", None, "kv_heads", None)] * 2
+        if is_int8(dtype):
+            shapes += [A.CacheSpec((batch, Se, KH), torch.float32)] * 2
+            axes += [("batch", None, "kv_heads")] * 2
+        groups["cross"] = stacked(cfg.num_layers, (tuple(shapes), tuple(axes)))
     elif cfg.family == "hybrid":
         n_sb = cfg.num_layers // (cfg.hybrid_attn_every or cfg.num_layers)
         ring = min(cache_len, cfg.sliding_window or cache_len)
@@ -453,7 +606,8 @@ def decode_hidden(cfg: ModelConfig, params, tokens, caches, index, force_window=
     whole past, and a parked slot's state advances until the slot is
     refilled. The hybrid family ignores ``fresh_cache`` and ``force_window``
     (its shared block always attends over its ring at the config's window),
-    and takes a vector ``index`` with single tokens only."""
+    and takes a vector ``index`` with single tokens only. The audio family
+    reads its ``"cross"`` caches, which ``seed_audio_caches`` wrote."""
     _require_ported(cfg)
     B, S = tokens.shape
     vector = isinstance(index, torch.Tensor) and index.dim() == 1
@@ -470,6 +624,9 @@ def decode_hidden(cfg: ModelConfig, params, tokens, caches, index, force_window=
     elif cfg.family == "hybrid":
         positions = decode_positions(index, B, S, x.device)
         x, new_caches = hybrid_decode(cfg, params, x, positions, caches, index)
+    elif cfg.family == "audio":
+        positions = decode_positions(index, B, S, x.device)
+        x, new_caches = audio_decode(cfg, params, x, positions, caches, index, fresh_cache)
     else:
         positions = decode_positions(index, B, S, x.device)
         windows = layer_windows(cfg, cfg.num_layers, force_window)

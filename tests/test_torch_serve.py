@@ -95,14 +95,15 @@ def test_model_config_and_registry_match_reference():
     tf = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     assert tf == jf
     assert list_configs() == ["falcon-mamba-7b", "gemma3-1b", "gemma3-4b", "nemotron-4-15b",
-                              "paper-cnn", "paper-lstm", "stablelm-1.6b", "zamba2-2.7b"]
+                              "paper-cnn", "paper-lstm", "stablelm-1.6b", "whisper-medium",
+                              "zamba2-2.7b"]
     for name in list_configs():
         for smoke in (False, True):
             got, want = get_config(name, smoke), jax_get_config(name, smoke)
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
             assert got.param_count() == want.param_count()
             assert got.resolved_head_dim == want.resolved_head_dim
-    for name in ("deepseek-v3-671b", "grok-1-314b", "whisper-medium"):
+    for name in ("deepseek-v3-671b", "grok-1-314b", "qwen2-vl-72b"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(name)
     with pytest.raises(KeyError, match="unknown arch"):
@@ -586,7 +587,8 @@ def test_serve_cli_runs_on_cpu(extra, capsys):
 
 def test_serve_cli_prompts_are_the_reference_prompts():
     cfg = get_config("gemma3-1b", smoke=True)
-    _, prompts = serve.build_inputs(cfg, 2, 32, seed=3)
+    _, prompts, extra = serve.build_inputs(cfg, 2, 32, seed=3)
+    assert extra is None
     want = np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 32)).astype(np.int32)
     np.testing.assert_array_equal(prompts, want)
 
@@ -600,7 +602,7 @@ def test_serve_cli_default_device_is_cuda():
         serve.run(args)
 
 
-@pytest.mark.parametrize("flags", [["--arch", "whisper-medium"], ["--arch", "qwen2-vl-72b"],
+@pytest.mark.parametrize("flags", [["--arch", "qwen2-vl-72b", "--full"], ["--arch", "qwen2-vl-72b"],
                                    ["--arch", "deepseek-v3-671b"], ["--arch", "grok-1-314b"]])
 def test_serve_cli_refuses_unported(flags, capsys):
     with pytest.raises(SystemExit):

@@ -154,17 +154,18 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize("flag", [["--arch", "paper-lstm"], ["--arch", "paper-cnn"],
                                   ["--arch", "qwen2-vl-72b"], ["--arch", "grok-1-314b", "--smoke"],
-                                  ["--population", "sync", "--arch", "whisper-medium"],
+                                  ["--population", "sync", "--arch", "qwen2-vl-72b"],
                                   ["--fault-nan", "0.1", "--smoke", "--arch", "deepseek-v3-671b"],
-                                  ["--checkpoint", "ckpt", "--arch", "whisper-medium"]])
+                                  ["--checkpoint", "ckpt", "--arch", "deepseek-v3-671b"]])
 def test_unported_flags_refuse(flag):
-    """Only --arch values outside the dense, ssm and hybrid families are
-    still unported (the paper models, which are not LLM architectures, and
-    the audio, VLM and MoE configs); the dense --arch path runs
+    """Only --arch values outside the dense, ssm, hybrid and audio families
+    are still unported (the paper models, which are not LLM architectures,
+    and the VLM and MoE configs); the dense --arch path runs
     (tests/test_torch_llm.py), the ssm and hybrid ones too
     (tests/test_torch_ssm_train.py), as do the population, fault and
     checkpoint flags (tests/test_torch_faults.py,
-    tests/test_torch_population.py, tests/test_torch_checkpoint.py)."""
+    tests/test_torch_population.py, tests/test_torch_checkpoint.py), and
+    whisper-medium (tests/test_torch_audio.py)."""
     with pytest.raises(SystemExit, match="not ported yet"):
         T.parse_args(["--device", "cpu"] + flag)
 
@@ -199,6 +200,8 @@ def test_package_imports_no_jax():
             "repro_torch.configs.paper_models", "repro_torch.core.faults",
             "repro_torch.core.population", "repro_torch.examples.quickstart",
             "repro_torch.examples.adaptive_ehealth_lstm",
+            "repro_torch.examples.train_100m_hsgd", "repro_torch.examples.serve_batched",
+            "repro_torch.configs.whisper_medium",
             "repro_torch.configs.gemma3_1b", "repro_torch.configs.stablelm_1_6b",
             "repro_torch.configs.falcon_mamba_7b", "repro_torch.kernels.ssm_scan",
             "repro_torch.models.ssm",
