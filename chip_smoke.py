@@ -262,6 +262,45 @@ head rows, then after 3o and 4i respectively):
      the engine (each request with its own frames), and 2 training rounds
      (--pods 2, k = 0.25, b = 128) from one CPU-drawn model, per-step
      losses within rtol 1e-3.
+
+The MoE family, grok-1-314b and deepseek-v3-671b with MLA (after 3r and
+4g respectively):
+  3s. grok-1-314b at its published widths (d 6144, 48 heads of 128 over 8
+     KV heads, 8 experts of 32 768, top 2, V 131 072; hf:xai-org/grok-1)
+     with 2 of its 64 layers (``get_config(arch).replace(num_layers=2)``,
+     weights drawn from the seed on the card), served through
+     ``serve.build_inputs``, ``build_engine`` and ``run_engine`` with
+     --batch 2 --prompt-len 4096 --gen 32 --cache-dtype bf16, the launch
+     counters zeroed just before and read just after: exactly 2 flash
+     launches (one a layer of the fresh 4096-token block, K and V repeated
+     to the 48 heads: [96, 4096, 128]) and no other kernel; then with
+     --spec-gamma 4 and a 1-layer draft: the same 2 flash launches and
+     tokens equal to the plain ones; prefill seconds, ms a decode step,
+     peak device bytes, and one more request batch profiled for the
+     device's busy share and device ms by kernel class (the expert
+     products, the dispatch and the combine, read from ``models/moe.py``'s
+     profiler ranges; flash; GEMMs; the rest);
+  3t. deepseek-v3-671b at its published widths (d 7168, MLA with q/kv ranks
+     1536/512, 128 heads, 256 routed experts of 2048 top 8 and a shared
+     one, V 129 280; arXiv:2412.19437) with 4 of its 61 layers (its 3 dense
+     layers and 1 MoE layer), --batch 2 --prompt-len 1024 --gen 32, with
+     bf16 and then int8 caches: no kernel of the port (MLA attends through
+     its absorbed weights over the cached latent, never flash), the same
+     numbers as 3s;
+  3u. ``repro_torch.launch.train --arch grok-1-314b|deepseek-v3-671b
+     --smoke --steps 20 --compression-k 0.25 --quantization 128 --pods 2``
+     (at published widths no depth fits one card: one grok MoE layer's θ0
+     is 22.9 GB a pod): exactly 10 exchanges x 1 row group compress
+     launches (TRAIN_CELLS) and no other kernel, the first exchange's group
+     torch.equal to plain, losses falling within every exchange interval;
+     then 2 rounds from one CPU-drawn model on the card and the CPU:
+     per-step losses within rtol 1e-3;
+  4k. the card against the CPU at both smoke configs with 96-token prompts
+     (192 tokens in the block, past an expert's 128 slots): first-step
+     logits within 1e-4 of the largest |logit|, equal greedy tokens, and
+     every router call's expert ids equal, except where the CPU's
+     probabilities at the first differing rank and the next lie within
+     1e-6.
 """
 from __future__ import annotations
 
@@ -311,7 +350,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: 
                                                  flash_attention_ref)
 from repro_torch.kernels.ssm_scan import (SSMScan, ssm_scan_bwd_cuda,  # noqa: E402
                                           ssm_scan_bwd_ref, ssm_scan_cuda, ssm_scan_ref)
-from repro_torch.launch import loadgen, profile_train, serve, steps as llm_steps  # noqa: E402
+from repro_torch.launch import loadgen, profile_serve, profile_train, serve  # noqa: E402
+from repro_torch.launch import steps as llm_steps  # noqa: E402
 from repro_torch.launch.engine import ServeEngine, sequential_generate  # noqa: E402
 from repro_torch.launch.timing import device_ms  # noqa: E402
 from repro_torch.data.synthetic import llm_batch_fn  # noqa: E402
@@ -319,6 +359,7 @@ from repro_torch.launch.steps import LLMRoundRunner, init_llm_params  # noqa: E4
 from repro_torch.launch.train import (build_llm, parse_args, population_rounds,  # noqa: E402
                                       run_ehealth, run_llm, run_population_cli, setup_ehealth)
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.split_model import llm_hybrid  # noqa: E402
 from repro_torch.models.ssm import CHUNK as SSM_CHUNK  # noqa: E402
@@ -466,6 +507,10 @@ TRAIN_CELLS = {
                         {"ssm_scan": 1400, "ssm_scan_bwd": 1360, "fused_compress": 50}),
     # no Mamba layer: row groups of widths 64, 1024, 4096 and 51865
     "whisper-medium": (0, 4, {"fused_compress": 40}),
+    # the MoE family at smoke widths (phase 3u): every row of the message is
+    # at most 512 floats wide, so one row group
+    "grok-1-314b": (0, 1, {"fused_compress": 10}),
+    "deepseek-v3-671b": (0, 1, {"fused_compress": 10}),
 }
 # whisper-medium at published widths (phases 3p, 3q, 4j): --prompt-len 416
 # + --gen 32 fill whisper's 448-token text context (cache bucket 512), far
@@ -477,6 +522,27 @@ AUDIO_HEAD_SHAPE = (1024, 51865)
 # 5 requests through 2 slots at full width (phase 3p): (prompt length, new tokens)
 AUDIO_REQUESTS = ((64, 8), (64, 12), (32, 6), (32, 10), (48, 8))
 AUDIO_PARITY_LEN, AUDIO_PARITY_GEN = 24, 8
+# the MoE family at published widths (phases 3s, 3t), depth cut to fit one
+# card with fp32 weights: grok-1-314b's 2 of 64 layers are 11.45e9
+# parameters (45.8 GB), and its batch-2 4096-token prefill adds ~11 GB of
+# [8, 2688, 32768] expert transients (3 layers would not fit); 3 dense + 1
+# MoE layer of deepseek-v3-671b's 61 (15.11e9 parameters, 60.4 GB) is the
+# shallowest cut that keeps its layer order and reaches an MoE layer, and a
+# 1024-token prompt keeps its absorbed MLA scores [2, 128, 1024, 2048] at
+# 2.15 GB (a 4096-token prompt would take 34.4 GB)
+GROK_ARCH, GROK_LAYERS, GROK_DRAFT_LAYERS = "grok-1-314b", 2, 1
+GROK_SERVE_ARGV = ["--arch", GROK_ARCH, "--full", "--batch", "2", "--prompt-len", "4096",
+                   "--gen", "32"]
+DEEPSEEK_ARCH, DEEPSEEK_LAYERS = "deepseek-v3-671b", 4
+DEEPSEEK_SERVE_ARGV = ["--arch", DEEPSEEK_ARCH, "--full", "--batch", "2", "--prompt-len", "1024",
+                       "--gen", "32"]
+MOE_ARCHS = (GROK_ARCH, DEEPSEEK_ARCH)
+# phase 4k at smoke widths: 2 x 96 = 192 tokens in the prefill block, more
+# than an expert's 128 slots, so assignments can drop
+MOE_PARITY_LEN, MOE_PARITY_GEN = 96, 8
+# an expert id may differ between the card and the CPU only where the
+# router's probabilities at that rank and the next lie this close
+ROUTER_TIE = 1e-6
 # checkpoints of phase 3g, inside the checkout's ignored build directory
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 
@@ -2060,6 +2126,178 @@ def check_example_twins(device):
     return out
 
 
+def serve_moe_batch(tag, cfg, params, prompts, args):
+    """One request batch of ``prompts`` through the engine ``args`` describe
+    (``serve.build_engine``, ``serve.run_engine``), the launch counters
+    zeroed just before and read just after: (report with the peak device
+    bytes of the run, tokens, launches); tokens checked in [0, V)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    report, tokens = serve.run_engine(serve.build_engine(cfg, params, args), prompts, None, args)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    report["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    del report["requests"]
+    print(f"[{tag}] launches={counts} prefill_s={report['prefill_s']} "
+          f"ms_per_decode_step={report['ms_per_decode_step']} "
+          f"decode_tok_per_s={report['decode_tok_per_s']} "
+          f"executors={report['compiled_executors']} speculative={report.get('speculative')} "
+          f"peak_device_bytes={report['peak_device_bytes']} "
+          f"peak_device_GiB={report['peak_device_bytes'] / 2 ** 30}")
+    check(report["generated_tokens"] == args.batch * args.gen,
+          f"{tag}: generated {report['generated_tokens']} tokens")
+    check(len(tokens) == args.batch and all(
+        len(t) == args.gen and all(0 <= x < cfg.vocab_size for x in t) for t in tokens),
+        f"{tag}: tokens out of [0, V)")
+    return report, tokens, counts
+
+
+def profile_moe_batch(tag, cfg, params, prompts, args):
+    """One more request batch through a fresh engine, under torch.profiler
+    (``profile_serve.profile_window``): the busy share of its wall time and
+    device ms by kernel class: the kernels launched inside each of
+    ``models/moe.py``'s profiler ranges (dispatch, expert products,
+    combine), and by name flash, GEMMs (the expert products' among them)
+    and the rest."""
+    engine = serve.build_engine(cfg, params, args)
+    win = profile_serve.profile_window(lambda: engine.generate(list(prompts), args.gen))
+    ms = {key[:-3] + "_ms": win[key] / 1e3 for key in win if key.endswith("_us")
+          and key != "top_kernels_us"}
+    out = {"busy_share": win["device_busy_share"], "profiled_wall_s": win["profiled_wall_s"],
+           "kernels": win["kernels"], **ms}
+    print(f"[{tag}] profiled request batch: wall {win['profiled_wall_s']} s, device busy "
+          f"{win['device_busy_s']} s (share {win['device_busy_share']}), {win['kernels']} "
+          f"kernels; device ms by class {ms}; top kernels (us) {win['top_kernels_us']}")
+    return out
+
+
+def check_moe_serving(device):
+    """Phases 3s and 3t: grok-1-314b (2 of 64 layers) and deepseek-v3-671b
+    (3 dense + 1 MoE layer of 61) at their published widths, each built as
+    ``get_config(arch).replace(num_layers=...)`` with its weights drawn from
+    the seed on the card, served through ``build_inputs``, ``build_engine``
+    and ``run_engine`` with the CLI's flags. grok (bf16 caches): exactly one
+    flash launch a layer (the fresh 4096-token block) and no other kernel,
+    plainly and with --spec-gamma 4 and a 1-layer draft, whose tokens equal
+    the plain ones. deepseek (bf16, then int8 caches): no kernel of the port
+    (MLA attends through its absorbed weights, never flash). Each: prefill
+    seconds, ms a decode step, peak device bytes, then a profiled request
+    batch for the busy share and device ms by kernel class."""
+    out = {}
+    cells = ((GROK_ARCH, GROK_LAYERS, GROK_SERVE_ARGV, ("bf16",)),
+             (DEEPSEEK_ARCH, DEEPSEEK_LAYERS, DEEPSEEK_SERVE_ARGV, ("bf16", "int8")))
+    for arch, layers, argv, caches in cells:
+        cfg = get_config(arch).replace(num_layers=layers)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        args = serve.parse_args(argv)
+        t0 = time.perf_counter()
+        params, prompts, _ = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed,
+                                                device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"[serve-{arch}] {layers} of {get_config(arch).num_layers} layers at published "
+              f"widths: {n_params} params ({4 * n_params} bytes in fp32) drawn on the card in "
+              f"{init_s} s; allocated before them {before} bytes")
+        cell = {"init_s": init_s, "params": n_params}
+        for cache in caches:
+            args = serve.parse_args(argv + ["--cache-dtype", cache])
+            tag = f"serve-{arch}-{cache}"
+            report, tokens, counts = serve_moe_batch(tag, cfg, params, prompts, args)
+            want = {"flash_attention": layers} if arch == GROK_ARCH else {}
+            check(counts == want, f"{tag}: launches {counts}, expected {want} and no other")
+            cell[cache] = {k: report[k] for k in ("prefill_s", "ms_per_decode_step",
+                                                  "decode_tok_per_s", "peak_device_bytes")}
+            cell[cache]["launches"] = counts
+            if arch == GROK_ARCH:
+                args.spec_gamma, args.spec_draft_layers = 4, GROK_DRAFT_LAYERS
+                spec, spec_tokens, spec_counts = serve_moe_batch(f"{tag}-spec", cfg, params,
+                                                                 prompts, args)
+                check(spec_counts == want,
+                      f"{tag} spec: launches {spec_counts}, expected {want} and no other")
+                if spec_tokens != tokens:
+                    check_same_tokens(f"{tag}-spec", cfg, params, prompts, tokens, spec_tokens)
+                cell["spec"] = {"acceptance": spec["speculative"]["acceptance"],
+                                "ms_per_token": spec["ms_per_decode_step"],
+                                "launches": spec_counts}
+                args.spec_gamma = 0
+            cell[cache].update(profile_moe_batch(tag, cfg, params, prompts, args))
+            del report, tokens
+        out[arch] = cell
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def router_picks():
+    """Yield a list that gets (probabilities [T, E], expert ids [T, k]) of
+    every router call, on the CPU."""
+    route, picks = M.route, []
+
+    def recorded(*args, **kwargs):
+        probs, gate, idx = route(*args, **kwargs)
+        picks.append((probs.detach().cpu(), idx.cpu()))
+        return probs, gate, idx
+
+    M.route = recorded
+    try:
+        yield picks
+    finally:
+        M.route = route
+
+
+def check_router_ids(tag, want, got):
+    """The card's router picks ``got`` against the CPU's ``want``, call by
+    call: expert ids equal, except where the CPU's probabilities at the
+    first rank that differs and the next lie within ROUTER_TIE (a near-tie
+    an ulp of the router's logits can flip). Returns the rows that
+    differed."""
+    check(len(got) == len(want), f"{tag}: {len(got)} router calls, the CPU made {len(want)}")
+    flipped = 0
+    for (p_cpu, i_cpu), (_, i_card) in zip(want, got):
+        check(i_card.shape == i_cpu.shape, f"{tag}: router ids {tuple(i_card.shape)} against "
+                                           f"{tuple(i_cpu.shape)}")
+        for row in torch.nonzero((i_card != i_cpu).any(dim=-1)).flatten().tolist():
+            rank = int(torch.nonzero(i_card[row] != i_cpu[row])[0])
+            srt = torch.sort(p_cpu[row], descending=True).values
+            gap = float(srt[rank] - srt[rank + 1])
+            print(f"[{tag}] router row {row}: ids cpu {i_cpu[row].tolist()} card "
+                  f"{i_card[row].tolist()}, probabilities at rank {rank} and {rank + 1} "
+                  f"{gap} apart")
+            check(gap <= ROUTER_TIE, f"{tag}: expert ids differ at row {row} where the "
+                                     f"probabilities are {gap} apart (> {ROUTER_TIE})")
+            flipped += 1
+    return flipped
+
+
+def check_moe_training(device):
+    """Phase 3u: ``--arch grok-1-314b|deepseek-v3-671b --smoke`` training
+    through the CLI (``check_train_cell`` on TRAIN_CELLS' pins: exactly
+    exchanges x row groups compress launches and no other kernel, the first
+    exchange's groups held torch.equal against plain, losses falling within
+    every exchange interval), then 2 rounds from one CPU-drawn model on the
+    card and on the CPU: per-step losses within rtol 1e-3."""
+    out = {}
+    for arch in MOE_ARCHS:
+        argv = ["--arch", arch, "--smoke"] + TRAIN_ARGV + ["--device", "cuda"]
+        out[arch] = check_train_cell(f"train-{arch}", device, parse_args(argv),
+                                     TRAIN_CELLS[arch], cli_argv=argv, hold_messages=True)
+        reset_launch_counts()
+        l_cpu, l_card = same_start_llm(torch.device("cpu"), device, arch=arch)
+        rel = float(((l_card - l_cpu).abs() / l_cpu.abs()).max())
+        print(f"[parity-train-{arch}] launches on the card={dict(launch_counts)} "
+              f"cpu={l_cpu.tolist()} cuda={l_card.tolist()} max_rel_diff={rel}")
+        check(launch_counts["fused_compress"] > 0,
+              f"{arch}: the card's training parity run skipped the compress kernel")
+        check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
+              f"{arch} training: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
+        out[arch]["parity_max_rel"] = rel
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -2278,6 +2516,13 @@ def main() -> int:
     twins = check_example_twins(device)
     print(f"[twins-summary] {json.dumps(twins)}")
 
+    # -- phases 3s, 3t, 3u: the MoE family, serving at published widths with
+    # its depth cut, training at smoke widths --------------------------------
+    moe_serve = check_moe_serving(device)
+    print(f"[moe-serve-summary] {json.dumps(moe_serve)}")
+    moe_train = check_moe_training(device)
+    print(f"[moe-train-summary] {json.dumps(moe_train)}")
+
     # -- phase 4: the card against the CPU ---------------------------------
     on_cpu, on_card = same_start_losses(torch.device("cpu"), device)
     rel = float(((on_card - on_cpu).abs() / on_cpu.abs()).max())
@@ -2409,6 +2654,24 @@ def main() -> int:
         check(rel <= 1e-4, f"{arch}: first-step logits differ by {rel} relative (> 1e-4)")
         check(tok_card == tok_cpu, f"{arch}: card and CPU greedy tokens differ")
 
+    # -- phase 4k: the card against the CPU on the MoE family ----------------
+    for arch in MOE_ARCHS:
+        picks = []
+        for dev in (torch.device("cpu"), device):
+            reset_launch_counts()
+            with router_picks() as calls:
+                (logits, tokens), = serve_parity(arch, MOE_PARITY_LEN, MOE_PARITY_GEN, dev)
+            picks.append((logits, tokens, calls, dict(launch_counts)))
+        (lg_cpu, tok_cpu, ids_cpu, _), (lg_card, tok_card, ids_card, card_counts) = picks
+        rel = float((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max())
+        print(f"[parity-serve-{arch}] launches on the card={card_counts} logits max |card - cpu| / "
+              f"max |cpu| = {rel} tokens cpu={tok_cpu} cuda={tok_card}")
+        check(rel <= 1e-4, f"{arch}: first-step logits differ by {rel} relative (> 1e-4)")
+        check(tok_card == tok_cpu, f"{arch}: card and CPU greedy tokens differ")
+        flipped = check_router_ids(f"parity-router-{arch}", ids_cpu, ids_card)
+        print(f"[parity-router-{arch}] {len(ids_cpu)} router calls, "
+              f"{sum(int(i.shape[0]) for _, i in ids_cpu)} token rows, {flipped} near-tie flips")
+
     # -- phase 5: summary ----------------------------------------------------
     kernels = [{
         "name": "fused_compress",
@@ -2416,7 +2679,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/compress.cu",
         "replaces": "src/repro/kernels/compress.py:78",
         "launches": counts["fused_compress"] + audio_train["launches"]["fused_compress"] + sum(
-            t["launches"].get("fused_compress", 0) for t in twins.values() if "launches" in t),
+            t["launches"].get("fused_compress", 0) for t in twins.values() if "launches" in t)
+        + sum(cell["launches"]["fused_compress"] for cell in moe_train.values()),
         "max_abs_err": max_err,
         "ms": main_cmp["ms"],
         "plain_ms": main_cmp["plain_ms"],
@@ -2440,7 +2704,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": counts_serve["flash_attention"],
+        "launches": counts_serve["flash_attention"] + sum(
+            moe_serve[GROK_ARCH][key]["launches"]["flash_attention"] for key in ("bf16", "spec")),
         "max_abs_err": max_err_flash,
         "ms": flash_main["ms"],
         "plain_ms": flash_main["plain_ms"],

@@ -10,6 +10,8 @@
       --arch gemma3-1b --full --batch 2 --prompt-len 4096 --gen 32 --spec-gamma 4
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch whisper-medium --full --batch 4 --prompt-len 416 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch deepseek-v3-671b --batch 2 --prompt-len 1024 --gen 32
 
 Takes the flags of ``repro_torch.launch.serve`` (``--spec-gamma``,
 ``--spec-draft-layers`` and ``--prefix-cache`` included) and needs a CUDA
@@ -22,12 +24,17 @@ request batch (prefill plus ``--gen`` tokens of decode). For each window it
 prints the wall time, the time the device was busy (the union of its
 kernel, copy and memset intervals), the device time and launches of the
 port's flash and scan kernels, of the matrix products (kernels named like a
-GEMM) and of everything else, and the kernels that took the most device
-time, as one JSON line.
+GEMM) and of everything else, the device time of the kernels launched
+inside each of the MoE layers' profiler ranges (``models/moe.py::
+MOE_RANGES``: dispatch, expert products, combine; zero outside the MoE
+family), and the kernels that took the most device time, as one JSON line.
+(At published widths grok-1-314b and deepseek-v3-671b do not fit one card:
+``chip_smoke.py`` phases 3s and 3t profile them with their depth cut.)
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import tempfile
@@ -40,6 +47,7 @@ from repro_torch.common.backend import resolve_device
 from repro_torch.common.config import get_config
 from repro_torch.launch import serve
 from repro_torch.launch.profile_train import busy_us, device_intervals
+from repro_torch.models.moe import MOE_RANGES
 
 PORT_KERNELS = {"flash": "flash_fwd_kernel", "scan": "ssm_scan_kernel"}
 GEMM_MARKS = ("gemm", "gemv", "cutlass", "xmma", "cublas")
@@ -64,6 +72,31 @@ def kernel_split(intervals):
     return out
 
 
+def annotated_kernels(trace_path: str, names):
+    """{name: (device µs, launches)} of the kernels launched inside a
+    ``torch.profiler.record_function(name)`` range: each kernel is matched,
+    through its correlation id, to the runtime or driver call that launched
+    it, and that call's host timestamp to the ranges around it."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+                    for e in events if e.get("cat") == "user_annotation" and e["name"] in names)
+    launched_at = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {})}
+    starts = [lo for lo, _, _ in ranges]
+    out = {name: [0.0, 0] for name in names}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ts = launched_at.get(e.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
+        if i >= 0 and ts <= ranges[i][1]:
+            out[ranges[i][2]][0] += float(e["dur"])
+            out[ranges[i][2]][1] += 1
+    return {name: tuple(v) for name, v in out.items()}
+
+
 def profile_window(fn, trace_path=None):
     """Run ``fn`` under the profiler and summarise the window's device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -76,6 +109,7 @@ def profile_window(fn, trace_path=None):
         path = trace_path or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         intervals = device_intervals(path)
+        moe = annotated_kernels(path, MOE_RANGES)
     by_name = defaultdict(float)
     for _, name, _, dur in intervals:
         by_name[name] += dur
@@ -86,6 +120,7 @@ def profile_window(fn, trace_path=None):
         "device_busy_share": busy / wall,
         "kernels": sum(1 for cat, *_ in intervals if cat == "kernel"),
         **kernel_split(intervals),
+        **{f"{name}_us": us for name, (us, _) in moe.items()},
         "top_kernels_us": sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
     }
 

@@ -4,7 +4,10 @@ Runs an architecture through the continuous-batching engine — batched
 single-pass prefill and blocked decode with on-device sampling — and
 reports per-request latency, aggregate tokens/s and the executor counts.
 ``--sequential`` runs the token-by-token oracle path instead. Runs on the
-card unless ``--device cpu`` is given.
+card unless ``--device cpu`` is given. The MoE configs (grok-1-314b,
+deepseek-v3-671b) do not fit one card at ``--full``: ``chip_smoke.py``
+serves them at published widths with their depth cut, through
+``build_inputs``, ``build_engine`` and ``run_engine``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \
       --batch 2 --prompt-len 4096 --gen 32
@@ -16,6 +19,8 @@ card unless ``--device cpu`` is given.
       --batch 2 --prompt-len 4096 --gen 32 --spec-gamma 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --full \
       --batch 4 --prompt-len 416 --gen 32 [--cache-dtype int8]
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch deepseek-v3-671b \
+      --batch 2 --prompt-len 32 --gen 8 [--cache-dtype int8] [--spec-gamma 2]
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch gemma3-1b \
       --batch 2 --prompt-len 32 --gen 8 [--spec-gamma 2] [--prefix-cache]
 """
@@ -105,6 +110,34 @@ def build_engine(cfg, params, args):
                        prefix_cache=args.prefix_cache)
 
 
+def run_engine(engine, prompts, extra, args):
+    """Serve ``prompts`` (with the audio family's frames ``extra``) through
+    ``engine`` for ``args.gen`` new tokens each: (report, tokens)."""
+    tokens, rep = engine.generate(list(prompts), args.gen, extra_embeds=extra)
+    prefill_s = max((r["prefill_s"] for r in rep["requests"]), default=0.0)
+    decode_s = max(rep["wall_s"] - prefill_s, 1e-9)
+    report = {
+        "arch": args.arch,
+        "mode": "engine",
+        "batch": args.batch,
+        "prefill_s": round(prefill_s, 3),
+        # decode-only rate (same basis as ms_per_decode_step); end-to-end
+        # throughput is tokens_per_s_e2e
+        "decode_tok_per_s": round(rep["generated_tokens"] / decode_s, 1),
+        "tokens_per_s_e2e": rep["tokens_per_s"],
+        "ms_per_decode_step": round(1000 * decode_s / max(args.gen, 1), 2),
+        "wall_s": rep["wall_s"],
+        "requests": rep["requests"],
+        "compiled_executors": rep["compiled_executors"],
+        "sample_output": tokens[0][:8],
+        "generated_tokens": rep["generated_tokens"],
+    }
+    for k in ("speculative", "prefix_cache"):
+        if k in rep:
+            report[k] = rep[k]
+    return report, tokens
+
+
 def run(args):
     """Serve one batch of prompts: (report, tokens per request)."""
     device = resolve_device(args.device)
@@ -139,29 +172,7 @@ def run(args):
         }
         tokens = toks.tolist()
     else:
-        engine = build_engine(cfg, params, args)
-        tokens, rep = engine.generate(list(prompts), args.gen, extra_embeds=extra)
-        prefill_s = max((r["prefill_s"] for r in rep["requests"]), default=0.0)
-        decode_s = max(rep["wall_s"] - prefill_s, 1e-9)
-        report = {
-            "arch": args.arch,
-            "mode": "engine",
-            "batch": args.batch,
-            "prefill_s": round(prefill_s, 3),
-            # decode-only rate (same basis as ms_per_decode_step); end-to-end
-            # throughput is tokens_per_s_e2e
-            "decode_tok_per_s": round(rep["generated_tokens"] / decode_s, 1),
-            "tokens_per_s_e2e": rep["tokens_per_s"],
-            "ms_per_decode_step": round(1000 * decode_s / max(args.gen, 1), 2),
-            "wall_s": rep["wall_s"],
-            "requests": rep["requests"],
-            "compiled_executors": rep["compiled_executors"],
-            "sample_output": tokens[0][:8],
-        }
-        report["generated_tokens"] = rep["generated_tokens"]
-        for k in ("speculative", "prefix_cache"):
-            if k in rep:
-                report[k] = rep[k]
+        report, tokens = run_engine(build_engine(cfg, params, args), prompts, extra, args)
     report["init_s"] = round(t_init, 3)
     report["device"] = str(device)
     if device.type == "cuda":

@@ -18,10 +18,11 @@ LLM-scale federation: --arch <name> [--smoke] trains the ``llm_hybrid``
 decomposition of an assigned architecture on synthetic token streams
 (``launch/steps.py``): fixed-cadence rounds (--steps, --p, --q, --pods,
 --compression-k, --quantization) or the §VI loop (--adaptive). The dense
-(gemma3-1b, gemma3-4b, stablelm-1.6b, nemotron-4-15b), ssm (falcon-mamba-7b),
-hybrid (zamba2-2.7b) and audio (whisper-medium) families run; other --arch
-values (the paper models, the MoE and VLM configs) exit with "not ported
-yet". Without --smoke the widths are the published ones.
+(gemma3-1b, gemma3-4b, stablelm-1.6b, nemotron-4-15b), MoE (grok-1-314b,
+deepseek-v3-671b), ssm (falcon-mamba-7b), hybrid (zamba2-2.7b) and audio
+(whisper-medium) families run; other --arch values (the paper models, the
+VLM config) exit with "not ported yet". Without --smoke the widths are the
+published ones.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --model paper-cnn \
@@ -38,6 +39,8 @@ Examples:
       --compression-k 0.25 --quantization 128 --pods 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --steps 20 \
       --compression-k 0.25 --quantization 128 --pods 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b --smoke \
+      --steps 20 --compression-k 0.25 --quantization 128 --pods 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium --steps 20 \
       --compression-k 0.25 --quantization 128 --pods 2
 """
@@ -407,10 +410,10 @@ def run_llm(args) -> Tuple[dict, np.ndarray]:
 
 
 def llm_arch_ported(name: str) -> bool:
-    """An --arch this package trains: a registered config of the dense, ssm,
-    hybrid or audio family."""
-    return name in list_configs() and get_config(name).family in ("dense", "ssm", "hybrid",
-                                                                  "audio")
+    """An --arch this package trains: a registered config of the dense, MoE,
+    ssm, hybrid or audio family."""
+    return name in list_configs() and get_config(name).family in ("dense", "moe", "ssm",
+                                                                  "hybrid", "audio")
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -1,14 +1,16 @@
-"""Attention: GQA/MHA, sliding window, blockwise, KV cache (``repro/models/attention.py``).
+"""Attention: GQA/MHA, MLA (DeepSeek latent), sliding window, blockwise, KV cache
+(``repro/models/attention.py``).
 
 Blockwise (online-softmax) attention is the plain twin of the flash kernel
 and runs whenever the score matrix would not fit memory; dense einsum
 attention runs for short sequences. Decode paths attend one query token (or
-a short block) against the cached K/V.
+a short block) against the cached K/V. MLA caches the compressed latent and
+the shared RoPE key; with a cache it attends through the absorbed weights
+(never the flash kernel), without one through the expanded per-head K/V.
 
 Caches are written IN PLACE (the reference donates them to its executors):
 ``_cache_write`` and ``_write_kv_cache`` update the cache tensors they are
-given and return them. MLA (DeepSeek latent attention) comes with the MoE
-family and raises "not ported yet".
+given and return them.
 """
 from __future__ import annotations
 
@@ -46,12 +48,20 @@ def gqa_specs(cfg: ModelConfig) -> Dict[str, L.Spec]:
     return s
 
 
-def mla_specs(cfg: ModelConfig):
-    raise NotImplementedError("MLA attention is not ported yet")
-
-
-def mla_forward(*args, **kw):
-    raise NotImplementedError("MLA attention is not ported yet")
+def mla_specs(cfg: ModelConfig) -> Dict[str, L.Spec]:
+    """DeepSeek-V3 Multi-head Latent Attention."""
+    d = cfg.d_model
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    qk_nope, qk_rope, vd = cfg.resolved_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": L.Spec((d, qr), ("embed", None)),
+        "q_a_norm": L.Spec((qr,), (None,), "ones"),
+        "wq_b": L.Spec((qr, cfg.num_heads, qk_nope + qk_rope), (None, "heads", "head_dim")),
+        "wkv_a": L.Spec((d, kvr + qk_rope), ("embed", None)),
+        "kv_a_norm": L.Spec((kvr,), (None,), "ones"),
+        "wkv_b": L.Spec((kvr, cfg.num_heads, qk_nope + vd), (None, "heads", "head_dim")),
+        "wo": L.Spec((cfg.num_heads, vd, d), ("heads", "head_dim", "embed")),
+    }
 
 
 def attention_specs(cfg: ModelConfig) -> Dict[str, L.Spec]:
@@ -282,6 +292,80 @@ def _decode_bias(q_pos, k_pos, window: int):
     return torch.where(ok, 0.0, NEG_INF).float()
 
 
+# ---------------------------------------------------------------------------
+# MLA forward — caches the compressed latent (DeepSeek-V3 style)
+# ---------------------------------------------------------------------------
+
+
+def mla_forward(params, x, positions, cfg: ModelConfig, window: int = 0,
+                kv_cache: Optional[Tuple] = None, cache_index=None, fresh_cache: bool = False,
+                **_):
+    """Returns (out, new_cache) — new_cache only when kv_cache is given.
+
+    With a cache (every serving step, ``fresh_cache`` ignored as in the
+    reference) the attention is ABSORBED: wkv_b's K half folds into the
+    query and its V half into the output, so the scores run over the
+    cached latent [B, S, r] and never expand it to per-head K/V. The
+    probabilities are rounded to the cache dtype before they weight the
+    latent, and the products accumulate in fp32, as the reference's
+    ``preferred_element_type``. Without a cache (training, the towers) the
+    latent is expanded to per-head K/V over the sequence."""
+    nope, rope_d, vd = cfg.resolved_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kvr, H = cfg.kv_lora_rank, cfg.num_heads
+    B, Sq = x.shape[0], x.shape[1]
+
+    qa = torch.matmul(x, params["wq_a"].to(x.dtype))
+    qa = L.rmsnorm({"scale": params["q_a_norm"]}, qa)
+    q = _project(qa, params["wq_b"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv_a = torch.matmul(x, params["wkv_a"].to(x.dtype))
+    latent, k_rope_flat = kv_a[..., :kvr], kv_a[..., kvr:]
+    latent = L.rmsnorm({"scale": params["kv_a_norm"]}, latent)
+    k_rope = L.apply_rope(k_rope_flat[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    scale = (nope + rope_d) ** -0.5
+    wkv_b = params["wkv_b"]
+    wo = params["wo"]
+
+    if kv_cache is not None:
+        # the (latent, RoPE key) pair takes the (K, V) slots of the cache
+        # layout, the int8 5-tuple's scales included
+        new_cache, c_lat, c_rope, cpos = _write_kv_cache(kv_cache, latent, k_rope, positions,
+                                                         cache_index)
+        Sk = c_lat.shape[1]
+        lat_dtype = c_lat.dtype
+        c_lat, c_rope = c_lat.float(), c_rope.float()
+        q_abs = torch.einsum("bqhk,rhk->bhqr", q_nope, wkv_b[..., :nope].to(x.dtype))
+        s = torch.bmm(q_abs.reshape(B, H * Sq, kvr).float(), c_lat.transpose(1, 2))
+        qr = q_rope.permute(0, 2, 1, 3).reshape(B, H * Sq, rope_d).float()
+        s += torch.bmm(qr, c_rope.transpose(1, 2))
+        s *= scale
+        s = s.view(B, H, Sq, Sk)
+        ok = cpos[:, None, None, :] <= positions[:, None, :, None]
+        ok = ok & _window_ok(positions[:, None, :, None], cpos[:, None, None, :], window)
+        s.masked_fill_(~ok, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        del s
+        p = p.to(lat_dtype).float().view(B, H * Sq, Sk)
+        out_lat = torch.bmm(p, c_lat).view(B, H, Sq, kvr)
+        del p
+        out = torch.einsum("bhqr,rhv->bqhv", out_lat, wkv_b[..., nope:].float()).to(x.dtype)
+    else:
+        kv = _project(latent, wkv_b)
+        k_nope, vv = kv[..., :nope], kv[..., nope:]
+        s = torch.einsum("bqhk,bshk->bhqs", q_nope.float(), k_nope.float())
+        s = (s + torch.einsum("bqhk,bsk->bhqs", q_rope.float(), k_rope.float())) * scale
+        ok = positions[:, None, None, :] <= positions[:, None, :, None]
+        ok = ok & _window_ok(positions[:, None, :, None], positions[:, None, None, :], window)
+        p = torch.softmax(torch.where(ok, s, NEG_INF), dim=-1)
+        out = torch.einsum("bhqs,bshv->bqhv", p, vv.float()).to(x.dtype)
+        new_cache = None
+    out = torch.matmul(out.reshape(B, Sq, H * vd), wo.to(out.dtype).reshape(H * vd, -1))
+    return out, new_cache
+
+
 def attention_forward(params, x, positions, cfg: ModelConfig, **kw):
     if cfg.attention == "mla":
         return mla_forward(params, x, positions, cfg, **kw)
@@ -298,10 +382,21 @@ def make_kv_cache_specs(cfg: ModelConfig, batch: int, cache_len: int, dtype=torc
 
     int8 caches carry two extra leaves per tuple — f32 per-row scales for the
     K and V codes — laid out ``(k, v, k_scale, v_scale, pos)`` so the int32
-    position track stays the last leaf in both layouts.
+    position track stays the last leaf in both layouts. MLA caches the
+    latent [B, L, kv_lora_rank] and the RoPE key [B, L, qk_rope_head_dim]
+    in their place, with [B, L] scales under int8.
     """
     if cfg.attention == "mla":
-        raise NotImplementedError("MLA caches are not ported yet")
+        kvr, rope_d = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        shapes = [CacheSpec((batch, cache_len, kvr), dtype),
+                  CacheSpec((batch, cache_len, rope_d), dtype)]
+        axes = [("batch", "cache_seq", None)] * 2
+        if is_int8(dtype):
+            shapes += [CacheSpec((batch, cache_len), torch.float32)] * 2
+            axes += [("batch", "cache_seq")] * 2
+        shapes.append(CacheSpec((batch, cache_len), torch.int32))
+        axes.append(("batch", "cache_seq"))
+        return tuple(shapes), tuple(axes)
     hd = cfg.resolved_head_dim
     shapes = [CacheSpec((batch, cache_len, cfg.num_kv_heads, hd), dtype)] * 2
     axes = [("batch", "cache_seq", "kv_heads", None)] * 2

@@ -1,4 +1,4 @@
-"""Model assembly, the dense, ssm, hybrid and audio families (``repro/models/transformer.py``).
+"""Model assembly, every family but the VLM one (``repro/models/transformer.py``).
 
 Layer parameters stay stacked along a leading layer dimension, so the
 reference's parameter tree maps onto the port's leaf for leaf; where the
@@ -15,15 +15,18 @@ and, under ``"kv"``, one ring-buffer KV cache a super-block for its shared
 attention block. The audio family (whisper) keeps its decoder's KV caches
 under ``"kv"`` and, under ``"cross"``, every layer's cross-attention K/V,
 projected once from the encoder output (``seed_audio_caches``) and only
-read by decode. ``draft_decode_step`` runs the first layers of the dense
-stack alone, the self-speculative draft. The MoE and VLM families raise
-"not ported yet".
+read by decode. The MoE family (grok-1, deepseek-v3) keeps its
+``first_dense_layers`` attention + MLP layers under ``"dense_layers"`` and
+the attention + MoE layers under ``"layers"``, and its KV (or MLA latent)
+caches in one stack under ``"kv"``, the dense layers' first.
+``draft_decode_step`` runs the first layers of the stack alone, the
+self-speculative draft. The VLM family raises "not ported yet".
 
 As in the reference, ``forward`` does not scale the audio family's token
 embedding by sqrt(d), while ``decode_step`` scales every family's.
 
 The train path (``forward``, ``backbone_forward``, ``lm_loss``) runs the
-dense, ssm, hybrid and audio families under autograd (the scan's gradient is
+dense, MoE, ssm, hybrid and audio families under autograd (the scan's gradient is
 ``kernels/ssm_scan.py::SSMScan``); ``remat`` wraps each layer, and each
 chunk of the fused head + cross-entropy, in ``torch.utils.checkpoint`` where
 the reference has ``jax.checkpoint``. The hybrid family's shared block is
@@ -43,9 +46,10 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.mlp import mlp_forward, mlp_specs
+from repro_torch.models.moe import moe_forward, moe_specs
 from repro_torch.models.quant import dequantize_rows, is_int8, quantize_rows
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "audio")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -59,13 +63,19 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> Dict:
-    """kind: attn_mlp | mamba (attn_moe is not ported yet). The audio
-    family's encoder, decoder and cross blocks are all attn_mlp blocks."""
+    """kind: attn_mlp | attn_moe | mamba; any other kind is an attn_mlp
+    block, as in the reference. The audio family's encoder, decoder and
+    cross blocks are all attn_mlp blocks."""
     d = cfg.d_model
     if kind == "mamba":
         return {"norm": L.norm_specs(cfg.norm, d), "mamba": SSM.mamba_specs(cfg)}
-    if kind != "attn_mlp":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind == "attn_moe":
+        return {
+            "norm1": L.norm_specs(cfg.norm, d),
+            "attn": A.attention_specs(cfg),
+            "norm2": L.norm_specs(cfg.norm, d),
+            "moe": moe_specs(cfg),
+        }
     return {
         "norm1": L.norm_specs(cfg.norm, d),
         "attn": A.attention_specs(cfg),
@@ -97,6 +107,20 @@ def attn_mlp_block(params, x, positions, cfg, window, kv_cache=None, cache_index
     h = L.apply_norm(cfg.norm, params["norm2"], x)
     x = x + mlp_forward(params["mlp"], h, cfg)
     return x, new_cache
+
+
+def attn_moe_block(params, x, positions, cfg, window, kv_cache=None, cache_index=None,
+                   fresh_cache=False):
+    """Attention + MoE block -> (x, new_cache, aux loss)."""
+    h = L.apply_norm(cfg.norm, params["norm1"], x)
+    a, new_cache = A.attention_forward(
+        params["attn"], h, positions, cfg, window=window,
+        kv_cache=kv_cache, cache_index=cache_index, fresh_cache=fresh_cache,
+    )
+    x = x + a
+    h = L.apply_norm(cfg.norm, params["norm2"], x)
+    m, aux = moe_forward(params["moe"], h, cfg)
+    return x + m, new_cache, aux
 
 
 def mamba_block(params, x, cfg, state=None):
@@ -139,6 +163,23 @@ def dense_stack_forward(params, x, positions, cfg, windows, remat=True, position
     for p, win in zip(_unbind_layers(params), windows):
         x = body(x, p, win)
     return x
+
+
+def moe_stack_forward(params, x, positions, cfg, windows, remat=True):
+    """The reference's ``lax.scan`` over a stack of attention + MoE layers
+    as a loop over its slices -> (x, the layers' aux losses summed in
+    order)."""
+
+    def body(xc, p, win):
+        y, _, a = attn_moe_block(p, xc, positions, cfg, win)
+        return y, a
+
+    body = _remat(body, remat)
+    aux = torch.zeros((), device=x.device)
+    for p, win in zip(_unbind_layers(params), windows):
+        x, a = body(x, p, win)
+        aux = aux + a
+    return x, aux
 
 
 def _mamba_layers(layers, x, cfg, remat):
@@ -185,6 +226,17 @@ def dense_stack_decode(params, x, positions, cfg, windows, caches, cache_index,
         x, _ = attn_mlp_block(layer_params(params, i), x, positions, cfg, win,
                               kv_cache=tuple(c[i] for c in caches), cache_index=cache_index,
                               fresh_cache=fresh_cache)
+    return x, caches
+
+
+def moe_stack_decode(params, x, positions, cfg, windows, caches, cache_index,
+                     fresh_cache=False):
+    """``dense_stack_decode`` over a stack of attention + MoE layers; the
+    aux losses are dropped, as in the reference."""
+    for i, win in enumerate(windows):
+        x, _, _ = attn_moe_block(layer_params(params, i), x, positions, cfg, win,
+                                 kv_cache=tuple(c[i] for c in caches),
+                                 cache_index=cache_index, fresh_cache=fresh_cache)
     return x, caches
 
 
@@ -265,9 +317,12 @@ def layer_windows(cfg: ModelConfig, n_layers: int, force_window: bool = False) -
 def model_specs(cfg: ModelConfig) -> Dict:
     _require_ported(cfg)
     d = cfg.d_model
-    kind = "mamba" if cfg.family in ("ssm", "hybrid") else "attn_mlp"
+    kind = {"ssm": "mamba", "hybrid": "mamba", "moe": "attn_moe"}.get(cfg.family, "attn_mlp")
+    n_stack = cfg.num_layers - cfg.first_dense_layers if cfg.family == "moe" else cfg.num_layers
     s: Dict = {"embed": L.embed_specs(cfg.vocab_size, d),
-               "layers": stack_specs(cfg, cfg.num_layers, kind)}  # audio: the decoder's
+               "layers": stack_specs(cfg, n_stack, kind)}  # audio: the decoder's
+    if cfg.family == "moe" and cfg.first_dense_layers:
+        s["dense_layers"] = stack_specs(cfg, cfg.first_dense_layers, "attn_mlp")
     if cfg.family == "audio":
         s["enc_layers"] = stack_specs(cfg, cfg.encoder_layers, "attn_mlp")
         s["enc_norm"] = L.norm_specs(cfg.norm, d)
@@ -325,9 +380,11 @@ def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None, remat: bool 
 def backbone_forward(cfg: ModelConfig, params, x, *, remat=True, force_window=False,
                      positions_3d=None):
     """Run the layer stack over already-embedded inputs x [B, S, D] ->
-    (x, aux). The dense, ssm and hybrid families; the audio family has no
-    single stack (``audio_forward``) and raises ``ValueError``, as in the
-    reference; the others raise "not ported yet"."""
+    (x, aux). The dense, MoE (its dense layers first; aux is the MoE
+    layers' load-balance loss, zero for the other families), ssm and hybrid
+    families; the audio family has no single stack (``audio_forward``) and
+    raises ``ValueError``, as in the reference; the VLM family raises "not
+    ported yet"."""
     _require_ported(cfg)
     if cfg.family == "audio":
         raise ValueError(cfg.family)
@@ -336,6 +393,11 @@ def backbone_forward(cfg: ModelConfig, params, x, *, remat=True, force_window=Fa
     windows = layer_windows(cfg, cfg.num_layers, force_window)
     if cfg.family == "dense":
         x = dense_stack_forward(params["layers"], x, positions, cfg, windows, remat, positions_3d)
+    elif cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            x = dense_stack_forward(params["dense_layers"], x, positions, cfg, windows[:nd], remat)
+        return moe_stack_forward(params["layers"], x, positions, cfg, windows[nd:], remat)
     elif cfg.family == "ssm":
         x = mamba_stack_forward(params["layers"], x, cfg, remat)
     else:
@@ -555,7 +617,7 @@ def make_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch
     if cfg.family in ("ssm", "hybrid"):
         sdtype = dtype if is_int8(dtype) else torch.float32
         groups["ssm"] = stacked(cfg.num_layers, SSM.mamba_state_specs(cfg, batch, sdtype))
-    if cfg.family in ("dense", "audio"):
+    if cfg.family in ("dense", "moe", "audio"):
         groups["kv"] = stacked(cfg.num_layers,
                                A.make_kv_cache_specs(cfg, batch, cache_len, dtype))
     if cfg.family == "audio":
@@ -627,6 +689,16 @@ def decode_hidden(cfg: ModelConfig, params, tokens, caches, index, force_window=
     elif cfg.family == "audio":
         positions = decode_positions(index, B, S, x.device)
         x, new_caches = audio_decode(cfg, params, x, positions, caches, index, fresh_cache)
+    elif cfg.family == "moe":
+        positions = decode_positions(index, B, S, x.device)
+        windows = layer_windows(cfg, cfg.num_layers, force_window)
+        nd, kv = cfg.first_dense_layers, caches["kv"]
+        if nd:
+            x, _ = dense_stack_decode(params["dense_layers"], x, positions, cfg, windows[:nd],
+                                      kv, index, fresh_cache)
+        x, _ = moe_stack_decode(params["layers"], x, positions, cfg, windows[nd:],
+                                tuple(c[nd:] for c in kv), index, fresh_cache)
+        new_caches = caches
     else:
         positions = decode_positions(index, B, S, x.device)
         windows = layer_windows(cfg, cfg.num_layers, force_window)
@@ -663,7 +735,8 @@ def supports_self_speculation(cfg: ModelConfig) -> bool:
 def draft_decode_step(cfg: ModelConfig, params, tokens, caches, index, draft_layers: int):
     """Truncated-depth (early-exit self-speculative) draft pass.
 
-    Runs only the FIRST ``draft_layers`` layers of the stack and reads draft
+    Runs only the FIRST ``draft_layers`` layers of the stack (the MoE
+    family: its dense layers, then the first MoE layers) and reads draft
     logits off the shared residual trunk (final norm + head). tokens:
     [B, 1]; ``index``: int32 [B] per-slot write positions. Layers below
     ``draft_layers`` write their cache slices in place, with what the
@@ -680,7 +753,19 @@ def draft_decode_step(cfg: ModelConfig, params, tokens, caches, index, draft_lay
     x = L.embed(params["embed"], tokens)
     x = x * _embed_scale(cfg, x.dtype)
     positions = decode_positions(index, B, S, x.device)
-    windows = layer_windows(cfg, cfg.num_layers)[:draft_layers]
-    x, _ = dense_stack_decode(params["layers"], x, positions, cfg, windows, caches["kv"], index)
+    windows = layer_windows(cfg, cfg.num_layers)
+    kv = caches["kv"]
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        k1 = min(draft_layers, nd)
+        if k1:
+            x, _ = dense_stack_decode(params["dense_layers"], x, positions, cfg, windows[:k1],
+                                      kv, index)
+        if draft_layers > k1:
+            x, _ = moe_stack_decode(params["layers"], x, positions, cfg,
+                                    windows[nd:draft_layers], tuple(c[nd:] for c in kv), index)
+    else:
+        x, _ = dense_stack_decode(params["layers"], x, positions, cfg, windows[:draft_layers],
+                                  kv, index)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     return logits_from_hidden(cfg, params, x), caches

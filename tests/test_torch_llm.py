@@ -445,14 +445,16 @@ def test_cli_smoke_matches_runner_and_checkpoint_loads(tmp_path, capsys):
 
 def test_cli_asks_for_the_card_and_refuses_unported_arches():
     """The CLI runs on the card unless asked for the CPU. --arch admits the
-    dense, ssm, hybrid and audio families (falcon-mamba-7b, zamba2-2.7b,
-    whisper-medium) and refuses the paper models and an arch absent from
-    the port's registry (qwen2-vl-72b)."""
+    dense, MoE, ssm, hybrid and audio families (grok-1-314b,
+    deepseek-v3-671b, falcon-mamba-7b, zamba2-2.7b, whisper-medium) and
+    refuses the paper models and an arch absent from the port's registry
+    (qwen2-vl-72b)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         TR.main(CLI[2:])
-    for arch in ("falcon-mamba-7b", "zamba2-2.7b", "whisper-medium"):
+    for arch in ("falcon-mamba-7b", "zamba2-2.7b", "whisper-medium", "grok-1-314b",
+                 "deepseek-v3-671b"):
         assert TR.parse_args(["--arch", arch]).arch == arch
     for arch in ("paper-cnn", "qwen2-vl-72b"):
         with pytest.raises(SystemExit, match="not ported yet"):

@@ -110,8 +110,8 @@ def test_verify_block_writes_match_reference(cache):
 
 def test_draft_decode_step_guards():
     """The reference's guards: a family that cannot self-speculate and a
-    draft depth outside (0, num_layers) raise ValueError; the MoE arm is not
-    ported yet."""
+    draft depth outside (0, num_layers) raise ValueError; the VLM arm is not
+    ported yet, the MoE arm runs (its values: tests/test_torch_moe.py)."""
     _, cfg = _configs("gemma3-1b")
     _, tp = _params("gemma3-1b")
     tok = torch.zeros((1, 1), dtype=torch.int32)
@@ -124,7 +124,12 @@ def test_draft_decode_step_guards():
     with pytest.raises(ValueError, match="self-speculation unsupported"):
         T.draft_decode_step(ssm, tp, tok, caches, idx, 1)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.draft_decode_step(cfg.replace(family="moe"), tp, tok, caches, idx, 1)
+        T.draft_decode_step(cfg.replace(family="vlm"), tp, tok, caches, idx, 1)
+    moe = get_config("grok-1-314b", smoke=True)
+    mp = L.init_params(T.model_specs(moe), torch.Generator().manual_seed(0))
+    logits, _ = T.draft_decode_step(moe, mp, tok, T.init_decode_caches(moe, 1, 8, torch.float32),
+                                    idx, 1)
+    assert tuple(logits.shape) == (1, 1, moe.vocab_size)
 
 
 # ---------------------------------------------------------------------------
