@@ -301,6 +301,42 @@ The MoE family, grok-1-314b and deepseek-v3-671b with MLA (after 3r and
      every router call's expert ids equal, except where the CPU's
      probabilities at the first differing rank and the next lie within
      1e-6.
+
+The VLM family, qwen2-vl-72b (phase 2c's case, then after 3u and 4k):
+  2c. also qwen2-vl-72b's prefill shape [128, 4096, 128] (batch 2 x 64
+     heads after the 8x K/V repeat), fp32, timed beside its bound and
+     F.scaled_dot_product_attention;
+  3v. qwen2-vl-72b at its published widths (d 8192, 64 heads of 128 over 8
+     KV heads, d_ff 29 568, V 152 064, M-RoPE sections (16, 24, 24);
+     arXiv:2409.12191) with 16 of its 80 layers, weights drawn from the
+     seed on the card, served text only (as the reference serves it)
+     through ``serve.build_inputs``, ``build_engine`` and ``run_engine``
+     with --batch 2 --prompt-len 4096 --gen 32 --cache-dtype bf16, the
+     launch counters zeroed just before and read just after: exactly 16
+     flash launches (one a layer of the fresh block) and no other kernel;
+     then with --spec-gamma 4 and a 1-layer draft: the same launches and
+     tokens equal to the plain ones; prefill seconds, ms a decode step,
+     peak device bytes, one more request batch profiled (busy share,
+     device ms of GEMMs, flash and the rest); then one no-grad ``lm_loss``
+     at the same weights over 1 024 patch embeddings (a 32 x 32 grid of
+     M-RoPE ids) and 1 024 tokens: finite, no kernel of the port (its 2 048
+     keys take the plain route), its seconds;
+  3w. ``repro_torch.launch.train --arch qwen2-vl-72b --smoke --steps 20
+     --compression-k 0.25 --quantization 128 --pods 2``: exactly 10
+     exchanges x 1 row group compress launches (TRAIN_CELLS) and no other
+     kernel, the first exchange's group torch.equal to plain, losses
+     falling within every exchange interval, steps/s, busy share, peak;
+  3x. one published-width layer (``replace(num_layers=1)``) trained at one
+     pod, --steps 4 with the same k and b, built as the CLI builds it:
+     exactly 2 exchanges x 4 row groups compress launches (128 | 8192 |
+     29568 | the head's 152064) and no other kernel, steps/s, peak device
+     bytes; then one more round with every group held torch.equal to plain
+     as it is made and timed beside its bound;
+  4l. the card against the CPU at qwen2-vl-72b's smoke widths: first-step
+     logits after a 4096-token prompt (flash on the card) within 1e-4 of
+     the largest |logit| and equal greedy tokens; ``lm_loss`` over 4 and
+     8 patch embeddings within rtol 1e-5; 2 training rounds (--pods 2,
+     k = 0.25, b = 128) from one CPU-drawn model within rtol 1e-3.
 """
 from __future__ import annotations
 
@@ -406,7 +442,10 @@ FLASH_CASES = (
     ("gemma3-4b prefill, global layer", 16, 4096, 256, 0, torch.float32),
     ("gemma3-4b prefill, local layer", 16, 4096, 256, 1024, torch.float32),
     ("nemotron-4-15b prefill", 96, 4096, 128, 0, torch.float32),
+    # qwen2-vl-72b's prefill: batch 2 x 64 heads after the 8x K/V repeat
+    ("qwen2-vl-72b prefill", 128, 4096, 128, 0, torch.float32),
 )
+VLM_FLASH_CASE = "qwen2-vl-72b prefill"
 SERVE_ARGV = ["--arch", "gemma3-1b", "--full", "--batch", "2", "--prompt-len", "4096",
               "--gen", "32"]
 SERVE_PARITY_LEN, SERVE_PARITY_GEN = 4096, 8
@@ -511,6 +550,9 @@ TRAIN_CELLS = {
     # at most 512 floats wide, so one row group
     "grok-1-314b": (0, 1, {"fused_compress": 10}),
     "deepseek-v3-671b": (0, 1, {"fused_compress": 10}),
+    # the VLM family at smoke widths (phase 3w): rows of at most 512 floats,
+    # one group (tests/test_torch_vlm.py::SMOKE_GROUPS)
+    "qwen2-vl-72b": (0, 1, {"fused_compress": 10}),
 }
 # whisper-medium at published widths (phases 3p, 3q, 4j): --prompt-len 416
 # + --gen 32 fill whisper's 448-token text context (cache bucket 512), far
@@ -543,6 +585,27 @@ MOE_PARITY_LEN, MOE_PARITY_GEN = 96, 8
 # an expert id may differ between the card and the CPU only where the
 # router's probabilities at that rank and the next lie this close
 ROUTER_TIE = 1e-6
+# qwen2-vl-72b at published widths (phase 3v), its depth cut to fit one card
+# with fp32 weights: 16 of 80 layers are 16.53e9 parameters (66.1 GB; the
+# full depth is 72.7e9, 291 GB), beside 1.07 GB of bf16 caches and ~4 GB of
+# the batch-2 4096-token prefill's MLP and attention transients
+VLM_ARCH, VLM_LAYERS, VLM_DRAFT_LAYERS = "qwen2-vl-72b", 16, 1
+VLM_SERVE_ARGV = ["--arch", VLM_ARCH, "--full", "--batch", "2", "--prompt-len", "4096",
+                  "--gen", "32", "--cache-dtype", "bf16"]
+# the reference's launch/steps.py VIS_PATCHES: a 32 x 32 grid of patch
+# embeddings in front of as many tokens (phase 3v's one forward whose M-RoPE
+# sections see grid ids; its 2048 keys take the plain route, no kernel)
+VLM_PATCHES, VLM_TEXT = 1024, 1024
+# one published-width training layer at one pod (phase 3x): θ0 2.12e9, θ1
+# 0.88e9 and θ2 2.12e9 parameters (20.5 GB), as much in gradients, θ0's copy
+# in the exchange and its row groups (128 | 8192 | 29568 | the head's
+# 152064: tests/test_torch_vlm.py::test_row_groups_of_the_training_message)
+VLM_TRAIN_LAYERS = 1
+VLM_TRAIN_ARGV = ["--arch", VLM_ARCH, "--steps", "4", "--compression-k", "0.25",
+                  "--quantization", "128", "--pods", "1"]
+VLM_TRAIN_CELL = (0, 4, {"fused_compress": 8})
+# phase 4l at smoke widths: a 4096-token block takes flash on the card
+VLM_PARITY_LEN, VLM_PARITY_GEN = 4096, 8
 # checkpoints of phase 3g, inside the checkout's ignored build directory
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 
@@ -754,8 +817,9 @@ def sdpa_yardstick(q, k, v, window: int):
 def check_flash_kernel(device, name):
     """Phase 2c: the flash kernel against its plain version on every case,
     timed beside the plain version, the library call and the bound. Returns
-    the comparison at the serving path's global-layer shape and the largest
-    fp32 difference at the serving path's shape."""
+    the comparison at the serving path's global-layer shape, the largest
+    fp32 difference at the serving path's shape and every case's
+    comparison by name."""
     bw, flops32 = card_rates(name)
     flops16 = next(r for key, r in CARD_BF16_RATES if key in name)
     flops_tf32 = next(r for key, r in CARD_TF32_RATES if key in name)
@@ -797,7 +861,7 @@ def check_flash_kernel(device, name):
               f"kernel/library={ms / library_ms}")
         del q, k, v, got, want, err
     main_err = max(results[c[0]]["max_abs_err"] for c in FLASH_CASES[:2])
-    return results[FLASH_CASES[0][0]], main_err
+    return results[FLASH_CASES[0][0]], main_err, results
 
 
 def scan_bound_ms(shape, a_dtype, h_dtype, bw, flops):
@@ -2126,7 +2190,7 @@ def check_example_twins(device):
     return out
 
 
-def serve_moe_batch(tag, cfg, params, prompts, args):
+def serve_batch(tag, cfg, params, prompts, args):
     """One request batch of ``prompts`` through the engine ``args`` describe
     (``serve.build_engine``, ``serve.run_engine``), the launch counters
     zeroed just before and read just after: (report with the peak device
@@ -2153,13 +2217,13 @@ def serve_moe_batch(tag, cfg, params, prompts, args):
     return report, tokens, counts
 
 
-def profile_moe_batch(tag, cfg, params, prompts, args):
+def profile_batch(tag, cfg, params, prompts, args):
     """One more request batch through a fresh engine, under torch.profiler
     (``profile_serve.profile_window``): the busy share of its wall time and
     device ms by kernel class: the kernels launched inside each of
     ``models/moe.py``'s profiler ranges (dispatch, expert products,
-    combine), and by name flash, GEMMs (the expert products' among them)
-    and the rest."""
+    combine; zero outside the MoE family), and by name flash, GEMMs (the
+    expert products' among them) and the rest."""
     engine = serve.build_engine(cfg, params, args)
     win = profile_serve.profile_window(lambda: engine.generate(list(prompts), args.gen))
     ms = {key[:-3] + "_ms": win[key] / 1e3 for key in win if key.endswith("_us")
@@ -2205,7 +2269,7 @@ def check_moe_serving(device):
         for cache in caches:
             args = serve.parse_args(argv + ["--cache-dtype", cache])
             tag = f"serve-{arch}-{cache}"
-            report, tokens, counts = serve_moe_batch(tag, cfg, params, prompts, args)
+            report, tokens, counts = serve_batch(tag, cfg, params, prompts, args)
             want = {"flash_attention": layers} if arch == GROK_ARCH else {}
             check(counts == want, f"{tag}: launches {counts}, expected {want} and no other")
             cell[cache] = {k: report[k] for k in ("prefill_s", "ms_per_decode_step",
@@ -2213,7 +2277,7 @@ def check_moe_serving(device):
             cell[cache]["launches"] = counts
             if arch == GROK_ARCH:
                 args.spec_gamma, args.spec_draft_layers = 4, GROK_DRAFT_LAYERS
-                spec, spec_tokens, spec_counts = serve_moe_batch(f"{tag}-spec", cfg, params,
+                spec, spec_tokens, spec_counts = serve_batch(f"{tag}-spec", cfg, params,
                                                                  prompts, args)
                 check(spec_counts == want,
                       f"{tag} spec: launches {spec_counts}, expected {want} and no other")
@@ -2223,7 +2287,7 @@ def check_moe_serving(device):
                                 "ms_per_token": spec["ms_per_decode_step"],
                                 "launches": spec_counts}
                 args.spec_gamma = 0
-            cell[cache].update(profile_moe_batch(tag, cfg, params, prompts, args))
+            cell[cache].update(profile_batch(tag, cfg, params, prompts, args))
             del report, tokens
         out[arch] = cell
         del params
@@ -2298,6 +2362,164 @@ def check_moe_training(device):
     return out
 
 
+def check_vlm_serving(device):
+    """Phase 3v: qwen2-vl-72b at its published widths with VLM_LAYERS of its
+    80 layers (``get_config(arch).replace(num_layers=...)``, weights drawn
+    from the seed on the card), served text only through ``build_inputs``,
+    ``build_engine`` and ``run_engine`` with VLM_SERVE_ARGV: exactly one
+    flash launch a layer (the fresh 4096-token block, K and V repeated to
+    the 64 heads: [128, 4096, 128]) and no other kernel, plainly and with
+    --spec-gamma 4 and a 1-layer draft, whose tokens equal the plain ones;
+    prefill seconds, ms a decode step, peak device bytes and a profiled
+    request batch. Then one ``torch.no_grad()`` ``T.lm_loss`` at the same
+    weights over VLM_PATCHES patch embeddings (a 32 x 32 grid of ids) and
+    VLM_TEXT tokens: finite, no kernel of the port (2048 keys take the
+    plain route), its seconds."""
+    cfg = get_config(VLM_ARCH).replace(num_layers=VLM_LAYERS)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    args = serve.parse_args(VLM_SERVE_ARGV)
+    t0 = time.perf_counter()
+    params, prompts, extra = serve.build_inputs(cfg, args.batch, args.prompt_len, args.seed,
+                                                device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(extra is None, "qwen2-vl serving drew patch embeddings: it serves text only")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[serve-{VLM_ARCH}] {VLM_LAYERS} of {get_config(VLM_ARCH).num_layers} layers at "
+          f"published widths: {n_params} params ({4 * n_params} bytes in fp32) drawn on the card "
+          f"in {init_s} s; allocated before them {before} bytes")
+    tag = f"serve-{VLM_ARCH}"
+    want = {"flash_attention": VLM_LAYERS}
+    report, tokens, counts = serve_batch(tag, cfg, params, prompts, args)
+    check(counts == want, f"{tag}: launches {counts}, expected {want} and no other")
+    cell = {"init_s": init_s, "params": n_params, "launches": counts}
+    cell.update({k: report[k] for k in ("prefill_s", "ms_per_decode_step", "decode_tok_per_s",
+                                        "peak_device_bytes")})
+    args.spec_gamma, args.spec_draft_layers = 4, VLM_DRAFT_LAYERS
+    spec, spec_tokens, spec_counts = serve_batch(f"{tag}-spec", cfg, params, prompts, args)
+    check(spec_counts == want, f"{tag} spec: launches {spec_counts}, expected {want} and no other")
+    if spec_tokens != tokens:
+        check_same_tokens(f"{tag}-spec", cfg, params, prompts, tokens, spec_tokens)
+    cell["spec"] = {"acceptance": spec["speculative"]["acceptance"],
+                    "ms_per_token": spec["ms_per_decode_step"], "launches": spec_counts}
+    args.spec_gamma = 0
+    cell.update(profile_batch(tag, cfg, params, prompts, args))
+    del report, tokens, spec, spec_tokens
+    rng = np.random.RandomState(args.seed)
+    batch = {"tokens": torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, VLM_TEXT))
+                                        .astype(np.int32)).to(device),
+             "labels": torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, VLM_TEXT))
+                                        .astype(np.int32)).to(device),
+             "extra_embeds": torch.from_numpy(rng.randn(1, VLM_PATCHES, cfg.d_model)
+                                              .astype(np.float32)).to(device)}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = float(T.lm_loss(cfg, params, batch, remat=False))
+    loss_s = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    print(f"[{tag}-patches] lm_loss over {VLM_PATCHES} patch embeddings (grid ids up to "
+          f"{int(np.sqrt(VLM_PATCHES)) - 1}) and {VLM_TEXT} tokens: {loss} in {loss_s} s, "
+          f"launches={counts}")
+    check(math.isfinite(loss), f"{tag}: lm_loss over patches is {loss}")
+    check(not counts, f"{tag}: lm_loss over {VLM_PATCHES + VLM_TEXT} positions launched {counts}")
+    cell["patch_loss"], cell["patch_loss_s"] = loss, loss_s
+    del params, batch
+    torch.cuda.empty_cache()
+    return cell
+
+
+def check_vlm_training(device, bw, flops):
+    """Phases 3w and 3x. 3w: ``--arch qwen2-vl-72b --smoke`` training through
+    the CLI (``check_train_cell`` on TRAIN_CELLS' pins: exactly exchanges x
+    row groups compress launches and no other kernel, the first exchange's
+    group held torch.equal against plain, losses falling within every
+    exchange interval). 3x: one published-width layer at one pod
+    (VLM_TRAIN_ARGV, built as the CLI builds it, through
+    ``LLMRoundRunner.run_fixed``): the launches VLM_TRAIN_CELL pins, steps/s
+    and peak device bytes, then one more round with every row group held
+    torch.equal against plain as it is made and each launch timed by CUDA
+    events beside its bound (the head's [8192, 152064] among them)."""
+    out = {}
+    argv = ["--arch", VLM_ARCH, "--smoke"] + TRAIN_ARGV + ["--device", "cuda"]
+    out["smoke"] = check_train_cell(f"train-{VLM_ARCH}", device, parse_args(argv),
+                                    TRAIN_CELLS[VLM_ARCH], cli_argv=argv, hold_messages=True)
+    torch.cuda.empty_cache()
+    args = parse_args(VLM_TRAIN_ARGV + ["--device", "cuda"])
+    cfg = get_config(VLM_ARCH).replace(num_layers=VLM_TRAIN_LAYERS)
+    model = llm_hybrid(cfg, n_tower=1, remat=False)
+    params = init_llm_params(torch.Generator(device=device).manual_seed(args.seed), model,
+                             n_pods=args.pods)
+    batch_fn = llm_batch_fn(cfg, args.batch, args.seq, n_pods=args.pods, seed=args.seed,
+                            device=device)
+    tag = f"train-{VLM_ARCH}-full"
+    out["full"] = check_train_cell(tag, device, args, VLM_TRAIN_CELL, model, params, batch_fn)
+    fn = LLMRoundRunner(model, n_pods=args.pods).round_fn(
+        args.p, args.q, args.compression_k, args.quantization, collect_stats=False)
+    lam = args.p // args.q
+    with checked_groups(bw, flops) as seen:
+        params, _ = fn(params, batch_fn(0, lam), args.lr)
+        torch.cuda.synchronize()
+    groups = VLM_TRAIN_CELL[1]
+    check(len(seen) == lam * groups, f"{tag}: {len(seen)} groups checked, expected {lam * groups}")
+    for shape, ms, bound in seen:
+        print(f"[{tag}] group {list(shape)}: torch.equal to plain; kernel ms (CUDA events around "
+              f"the launch) {ms} bound_ms {bound} bound/kernel {bound / ms}")
+    out["full"]["groups_ms"] = {str(list(shape)): (ms, bound) for shape, ms, bound in seen}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_vlm_parity(device):
+    """Phase 4l: the card against the CPU at qwen2-vl-72b's smoke widths:
+    first-step logits after a VLM_PARITY_LEN-token prompt (flash on the
+    card) within 1e-4 of the largest |logit| and equal greedy tokens;
+    ``lm_loss`` over 4 and 8 patch embeddings within rtol 1e-5; 2 training
+    rounds from one CPU-drawn model within rtol 1e-3."""
+    reset_launch_counts()
+    (lg_cpu, tok_cpu), (lg_card, tok_card) = serve_parity(
+        VLM_ARCH, VLM_PARITY_LEN, VLM_PARITY_GEN, torch.device("cpu"), device)
+    logits_rel = float((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max())
+    print(f"[parity-serve-{VLM_ARCH}] launches on the card={dict(launch_counts)} logits max "
+          f"|card - cpu| / max |cpu| = {logits_rel} tokens cpu={tok_cpu} cuda={tok_card}")
+    check(launch_counts["flash_attention"] > 0, f"{VLM_ARCH}: the card's parity run skipped "
+                                                f"the kernel")
+    check(logits_rel <= 1e-4, f"{VLM_ARCH}: first-step logits differ by {logits_rel} relative "
+                              f"(> 1e-4)")
+    check(tok_card == tok_cpu, f"{VLM_ARCH}: card and CPU greedy tokens differ")
+    cfg = get_config(VLM_ARCH, smoke=True)
+    params = L.init_params(T.model_specs(cfg), torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(1)
+    losses = {}
+    for P in (4, 8):
+        batch = {"tokens": rng.randint(0, cfg.vocab_size, (2, 24)).astype(np.int32),
+                 "labels": rng.randint(0, cfg.vocab_size, (2, 24)).astype(np.int32),
+                 "extra_embeds": rng.randn(2, P, cfg.d_model).astype(np.float32)}
+        got = []
+        for dev in (torch.device("cpu"), device):
+            on = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                got.append(float(T.lm_loss(cfg, tree_map(lambda t: t.to(dev), params), on)))
+        rel = abs(got[1] - got[0]) / abs(got[0])
+        print(f"[parity-loss-{VLM_ARCH}] {P} patches: lm_loss cpu={got[0]} cuda={got[1]} "
+              f"rel={rel}")
+        check(rel <= 1e-5, f"{VLM_ARCH}: lm_loss over {P} patches differs by {rel} (> 1e-5)")
+        losses[P] = rel
+    reset_launch_counts()
+    l_cpu, l_card = same_start_llm(torch.device("cpu"), device, arch=VLM_ARCH)
+    rel = float(((l_card - l_cpu).abs() / l_cpu.abs()).max())
+    print(f"[parity-train-{VLM_ARCH}] launches on the card={dict(launch_counts)} "
+          f"cpu={l_cpu.tolist()} cuda={l_card.tolist()} max_rel_diff={rel}")
+    check(launch_counts["fused_compress"] > 0,
+          f"{VLM_ARCH}: the card's training parity run skipped the compress kernel")
+    check(torch.allclose(l_card, l_cpu, rtol=1e-3, atol=0.0),
+          f"{VLM_ARCH} training: card and CPU losses differ beyond rtol 1e-3 (max rel {rel})")
+    return {"logits_rel": logits_rel, "loss_rel": losses, "train_max_rel": rel}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -2351,7 +2573,7 @@ def main() -> int:
     max_err_dp = max(max_err_dp, head_dp["max_abs_err"])
 
     # -- phase 2c: the flash-attention kernel against plain ------------------
-    flash_main, max_err_flash = check_flash_kernel(device, name)
+    flash_main, max_err_flash, flash_cases = check_flash_kernel(device, name)
 
     # -- phase 2d: the scan kernel against plain, bit for bit ------------------
     scan_main, max_err_scan = check_scan_kernel(device, name)
@@ -2523,6 +2745,13 @@ def main() -> int:
     moe_train = check_moe_training(device)
     print(f"[moe-train-summary] {json.dumps(moe_train)}")
 
+    # -- phases 3v, 3w, 3x: the VLM family, serving at published widths with
+    # its depth cut, training at smoke widths and one published-width layer --
+    vlm_serve = check_vlm_serving(device)
+    print(f"[vlm-serve-summary] {json.dumps(vlm_serve)}")
+    vlm_train = check_vlm_training(device, bw, flops)
+    print(f"[vlm-train-summary] {json.dumps(vlm_train)}")
+
     # -- phase 4: the card against the CPU ---------------------------------
     on_cpu, on_card = same_start_losses(torch.device("cpu"), device)
     rel = float(((on_card - on_cpu).abs() / on_cpu.abs()).max())
@@ -2672,6 +2901,10 @@ def main() -> int:
         print(f"[parity-router-{arch}] {len(ids_cpu)} router calls, "
               f"{sum(int(i.shape[0]) for _, i in ids_cpu)} token rows, {flipped} near-tie flips")
 
+    # -- phase 4l: the card against the CPU on the VLM family -----------------
+    vlm_parity = check_vlm_parity(device)
+    print(f"[vlm-parity-summary] {json.dumps(vlm_parity)}")
+
     # -- phase 5: summary ----------------------------------------------------
     kernels = [{
         "name": "fused_compress",
@@ -2680,7 +2913,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/compress.py:78",
         "launches": counts["fused_compress"] + audio_train["launches"]["fused_compress"] + sum(
             t["launches"].get("fused_compress", 0) for t in twins.values() if "launches" in t)
-        + sum(cell["launches"]["fused_compress"] for cell in moe_train.values()),
+        + sum(cell["launches"]["fused_compress"] for cell in moe_train.values())
+        + sum(cell["launches"]["fused_compress"] for cell in vlm_train.values()),
         "max_abs_err": max_err,
         "ms": main_cmp["ms"],
         "plain_ms": main_cmp["plain_ms"],
@@ -2705,13 +2939,17 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": counts_serve["flash_attention"] + sum(
-            moe_serve[GROK_ARCH][key]["launches"]["flash_attention"] for key in ("bf16", "spec")),
+            moe_serve[GROK_ARCH][key]["launches"]["flash_attention"] for key in ("bf16", "spec"))
+        + vlm_serve["launches"]["flash_attention"]
+        + vlm_serve["spec"]["launches"]["flash_attention"],
         "max_abs_err": max_err_flash,
         "ms": flash_main["ms"],
         "plain_ms": flash_main["plain_ms"],
         "bound_ms": flash_main["bound_ms"],
         "bound_by": flash_main["bound_by"],
         "library_ms": flash_main["library_ms"],
+        # qwen2-vl-72b's prefill shape (phase 3v's launches)
+        "vlm_prefill": {"shape": [128, 4096, 128], **flash_cases[VLM_FLASH_CASE]},
     }, {
         "name": "ssm_scan",
         "route": "cuda",

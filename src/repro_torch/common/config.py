@@ -4,8 +4,8 @@ configuration (the paper's hyper-parameters).
 Same fields, defaults and validation errors as ``repro/common/config.py``.
 The registry holds the architectures the port runs (``repro_torch/configs``:
 the paper's CNN and LSTM, the dense family, Mamba-1, the zamba2 hybrid,
-the whisper encoder-decoder and the MoE family, grok-1 and deepseek-v3
-with MLA); the reference's VLM architecture raises "not ported yet".
+the whisper encoder-decoder, the MoE family, grok-1 and deepseek-v3
+with MLA, and the qwen2-vl VLM): every architecture of the reference.
 """
 from __future__ import annotations
 
@@ -159,8 +159,6 @@ INPUT_SHAPES: Dict[str, InputShape] = {
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 _SMOKE_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
-# the reference's architectures that the port does not run yet
-UNPORTED_ARCHS = ("qwen2-vl-72b",)
 
 
 def register_config(name: str, full: Callable[[], ModelConfig], smoke: Callable[[], ModelConfig]):
@@ -172,8 +170,6 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (triggers registration)
 
     reg = _SMOKE_REGISTRY if smoke else _REGISTRY
-    if name in UNPORTED_ARCHS:
-        raise KeyError(f"arch '{name}' is not ported yet; ported: {sorted(reg)}")
     if name not in reg:
         raise KeyError(f"unknown arch '{name}'; known: {sorted(reg)}")
     return reg[name]()

@@ -2,7 +2,8 @@
 
 The trained global model θ̃ is what e-health institutions serve back to
 devices and clinicians. This is the port of ``repro/launch/engine.py`` for
-every family but the VLM one. Its executors are Python closures cached per shape
+every family (the VLM family serves text only, as in the reference). Its
+executors are Python closures cached per shape
 bucket under the reference's keys, as the reference caches one jitted
 program per bucket; ``compile_counts`` reports the caches' sizes under the
 reference's names.
@@ -33,13 +34,13 @@ reference's names.
   the audio family ``"kv"`` and ``"cross"``, each with its batch on axis 1)
   into freed decode slots; pad rows carry ``dst == max_batch`` and are
   dropped.
-* **spec** (opt-in via ``spec_gamma``, dense and MoE families) — self-speculative
+* **spec** (opt-in via ``spec_gamma``, dense, VLM and MoE families) — self-speculative
   decoding: each round drafts γ tokens with the first ``spec_draft_layers``
   layers (``T.draft_decode_step``) and verifies them with ONE full-model
   pass over [B, γ+1] tokens, accepting the longest matching prefix. Every
   emitted token is the full model's argmax, so greedy output equals plain
   decode; one host sync per block.
-* **harvest** (opt-in via ``prefix_cache``, dense and MoE families) — prefix caching:
+* **harvest** (opt-in via ``prefix_cache``, dense, VLM and MoE families) — prefix caching:
   after a prefill whose pow2 prompt head missed the store, one executor
   masks the caches back to exactly-p-tokens state; each row is cloned into
   a device-resident LRU store keyed by the head's digest, and later
@@ -147,7 +148,7 @@ class ServeEngine:
                  max_prefill_block: int = 4096, spec_gamma: int = 0,
                  spec_draft_layers: Optional[int] = None, prefix_cache: bool = False,
                  prefix_min_len: int = 8, prefix_store_max: int = 32):
-        T.model_specs(cfg)  # raises for a family that is not ported yet
+        T.model_specs(cfg)  # raises for a family that is not an LLM family
         self.cfg = cfg
         self.params = params
         self.device = params["embed"]["table"].device

@@ -28,8 +28,9 @@ GEMM) and of everything else, the device time of the kernels launched
 inside each of the MoE layers' profiler ranges (``models/moe.py::
 MOE_RANGES``: dispatch, expert products, combine; zero outside the MoE
 family), and the kernels that took the most device time, as one JSON line.
-(At published widths grok-1-314b and deepseek-v3-671b do not fit one card:
-``chip_smoke.py`` phases 3s and 3t profile them with their depth cut.)
+(At published widths grok-1-314b, deepseek-v3-671b and qwen2-vl-72b do not
+fit one card: ``chip_smoke.py`` phases 3s, 3t and 3v profile them with their
+depth cut.)
 """
 from __future__ import annotations
 

@@ -5,9 +5,11 @@ single-pass prefill and blocked decode with on-device sampling — and
 reports per-request latency, aggregate tokens/s and the executor counts.
 ``--sequential`` runs the token-by-token oracle path instead. Runs on the
 card unless ``--device cpu`` is given. The MoE configs (grok-1-314b,
-deepseek-v3-671b) do not fit one card at ``--full``: ``chip_smoke.py``
-serves them at published widths with their depth cut, through
-``build_inputs``, ``build_engine`` and ``run_engine``.
+deepseek-v3-671b) and qwen2-vl-72b do not fit one card at ``--full``:
+``chip_smoke.py`` serves them at published widths with their depth cut
+(qwen2-vl-72b: 16 of 80 layers, 66.1 GB of fp32 weights), through
+``build_inputs``, ``build_engine`` and ``run_engine``. qwen2-vl-72b serves
+text only, as the reference does: M-RoPE over the text ids.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --full \
       --batch 2 --prompt-len 4096 --gen 32
@@ -22,6 +24,8 @@ serves them at published widths with their depth cut, through
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch deepseek-v3-671b \
       --batch 2 --prompt-len 32 --gen 8 [--cache-dtype int8] [--spec-gamma 2]
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch gemma3-1b \
+      --batch 2 --prompt-len 32 --gen 8 [--spec-gamma 2] [--prefix-cache]
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch qwen2-vl-72b \
       --batch 2 --prompt-len 32 --gen 8 [--spec-gamma 2] [--prefix-cache]
 """
 from __future__ import annotations
@@ -41,14 +45,12 @@ from repro_torch.launch.engine import (CACHE_DTYPES, ServeEngine, parse_cache_dt
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
-NOT_PORTED = "not ported yet"
-
-
 def build_inputs(cfg, batch: int, prompt_len: int, seed: int = 0, device="cpu"):
     """(params, prompts, extra_embeds) for a serve run. The prompts, and
     the audio family's frames [batch, encoder_seq, d] (None for the other
-    families), are the reference's (one ``np.random.RandomState(seed)``,
-    the frames drawn after the prompts); the params come from the port's
+    families: the VLM family serves text only, as in the reference), are
+    the reference's (one ``np.random.RandomState(seed)``, the frames drawn
+    after the prompts); the params come from the port's
     ``init_params`` with a generator seeded with ``seed`` on ``device``
     itself, so they are not the reference's, and on the card they differ
     from the CPU's (a full-width model is drawn there rather than on one
@@ -95,8 +97,8 @@ def parse_args(argv=None):
     try:
         cfg = get_config(args.arch, smoke=args.smoke)
         T.model_specs(cfg)
-    except (KeyError, NotImplementedError) as e:
-        ap.error(f"--arch {args.arch}: {NOT_PORTED} ({e})")
+    except (KeyError, ValueError) as e:
+        ap.error(f"--arch {args.arch}: not an LLM architecture ({e!r})")
     return args
 
 

@@ -18,11 +18,11 @@ LLM-scale federation: --arch <name> [--smoke] trains the ``llm_hybrid``
 decomposition of an assigned architecture on synthetic token streams
 (``launch/steps.py``): fixed-cadence rounds (--steps, --p, --q, --pods,
 --compression-k, --quantization) or the §VI loop (--adaptive). The dense
-(gemma3-1b, gemma3-4b, stablelm-1.6b, nemotron-4-15b), MoE (grok-1-314b,
-deepseek-v3-671b), ssm (falcon-mamba-7b), hybrid (zamba2-2.7b) and audio
-(whisper-medium) families run; other --arch values (the paper models, the
-VLM config) exit with "not ported yet". Without --smoke the widths are the
-published ones.
+(gemma3-1b, gemma3-4b, stablelm-1.6b, nemotron-4-15b), VLM (qwen2-vl-72b),
+MoE (grok-1-314b, deepseek-v3-671b), ssm (falcon-mamba-7b), hybrid
+(zamba2-2.7b) and audio (whisper-medium) families run; the paper models,
+which are not LLM architectures, exit with "not an LLM architecture".
+Without --smoke the widths are the published ones.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --model paper-cnn \
@@ -43,6 +43,8 @@ Examples:
       --steps 20 --compression-k 0.25 --quantization 128 --pods 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium --steps 20 \
       --compression-k 0.25 --quantization 128 --pods 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-72b --smoke \
+      --steps 20 --compression-k 0.25 --quantization 128 --pods 2
 """
 from __future__ import annotations
 
@@ -79,6 +81,7 @@ from repro_torch.data.synthetic import (DATASETS, flatten_for_tower, llm_batch_f
                                         vertical_split)
 from repro_torch.launch.steps import (AdaptiveLLMRunner, LLMRoundRunner, global_llm_params,
                                       init_llm_params)
+from repro_torch.models import transformer as T
 from repro_torch.models.split_model import cnn_hybrid, llm_hybrid, lstm_hybrid
 
 FAULT_RATES = ("fault_dropout", "fault_nan", "fault_outlier", "fault_msg_corrupt",
@@ -410,10 +413,9 @@ def run_llm(args) -> Tuple[dict, np.ndarray]:
 
 
 def llm_arch_ported(name: str) -> bool:
-    """An --arch this package trains: a registered config of the dense, MoE,
-    ssm, hybrid or audio family."""
-    return name in list_configs() and get_config(name).family in ("dense", "moe", "ssm",
-                                                                  "hybrid", "audio")
+    """An --arch this package trains: a registered config of an LLM family
+    (dense, VLM, MoE, ssm, hybrid or audio)."""
+    return name in list_configs() and get_config(name).family in T.PORTED_FAMILIES
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -531,7 +533,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     validate_args(ap, args)
     if args.arch and not llm_arch_ported(args.arch):
-        raise SystemExit(f"--arch {args.arch}: not ported yet")
+        raise SystemExit(f"--arch {args.arch}: not an LLM architecture")
     if not args.model:
         args.model = "paper-cnn"
     return args

@@ -237,9 +237,10 @@ def gqa_forward(
     cache_index=None,
     fresh_cache: bool = False,
 ):
-    """Returns (out, new_kv) — new_kv only when kv_cache is given (decode)."""
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE (the VLM family) is not ported yet")
+    """Returns (out, new_kv) — new_kv only when kv_cache is given (decode).
+    With ``cfg.mrope_sections`` (the VLM family) q and k take M-RoPE over
+    ``positions_3d`` [B, S, 3], or over the text ids of ``positions``
+    when none are given."""
     hd = cfg.resolved_head_dim
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
@@ -247,8 +248,13 @@ def gqa_forward(
     if cfg.qk_norm:
         q = _head_rms(q, params["q_norm"])
         k = _head_rms(k, params["k_norm"])
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections:
+        p3 = positions_3d if positions_3d is not None else L.text_positions_3d(positions)
+        q = L.apply_mrope(q, p3, cfg.mrope_sections, cfg.rope_theta)
+        k = L.apply_mrope(k, p3, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     scale = hd ** -0.5
 
     if kv_cache is not None:

@@ -151,7 +151,7 @@ ACTIVATIONS = {
 
 
 # ---------------------------------------------------------------------------
-# RoPE (M-RoPE comes with the VLM family)
+# RoPE (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -179,3 +179,34 @@ def apply_rope(x, positions, theta: float = 10000.0):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_slots(sections: Tuple[int, ...], device: str):
+    return torch.cat([torch.full((n,), i, dtype=torch.long)
+                      for i, n in enumerate(sections)]).to(device)
+
+
+def apply_mrope(x, positions_3d, sections: Tuple[int, ...], theta: float = 10000.0):
+    """Qwen2-VL multimodal RoPE.
+
+    positions_3d: [..., S, 3] (temporal, height, width position ids).
+    sections: split of the head_dim/2 frequency slots over the 3 kinds of
+    id. Each slot's id is picked by indexing (the slot -> kind table is
+    built on the CPU once per (sections, device)), never by a product with
+    a one-hot: a TF32 matmul on the card would round ids past 2048.
+    """
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)  # [D/2]
+    slots = _mrope_slots(tuple(int(n) for n in sections), str(x.device))
+    angles = positions_3d[..., slots].float() * freqs  # [..., S, D/2]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def text_positions_3d(positions):
+    """Text-only M-RoPE: the same id on all 3 channels."""
+    return torch.stack([positions, positions, positions], dim=-1)

@@ -11,9 +11,10 @@ Instantiations:
   * llm_hybrid — the assigned LLM-scale architectures: in the text arm
     the hospital and the device each hold a segment of the sequence; in the
     audio arm (whisper) the hospital holds the audio frames and the device
-    the decoder's tokens. The towers are ``n_tower`` blocks at full width,
-    and the combined model is the architecture's backbone (whisper's
-    encoder-decoder) + an untied head. The VLM arm is not ported yet.
+    the decoder's tokens; in the VLM arm (qwen2-vl) the hospital holds the
+    patch embeddings and the device the tokens. The towers are ``n_tower``
+    blocks at full width, and the combined model is the architecture's
+    backbone (whisper's encoder-decoder) + an untied head.
 """
 from __future__ import annotations
 
@@ -179,15 +180,18 @@ def llm_hybrid(cfg: ModelConfig, n_tower: int = 2, remat: bool = True) -> Hybrid
     """Wrap an assigned architecture into the paper's hybrid decomposition.
 
     Text arm: the hospital and the device towers each embed a segment of
-    the token sequence. Audio arm: the hospital tower has no embedding and
-    runs over the float frames [B, Se, d]; as in the reference it is a
-    dense tower (``_tower_cfg``), causal and with RoPE over the frames. Its
-    ζ1 is the encoder's input and the device tower's ζ2 the decoder's. The
-    VLM arm raises."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(f"the {cfg.family!r} arm of llm_hybrid is not ported yet")
-    # hospital tower: audio frames for whisper, a token segment otherwise
-    s1, tcfg1 = _tower_stack_specs(cfg, n_tower, with_embed=cfg.family != "audio")
+    the token sequence. Audio and VLM arms: the hospital tower has no
+    embedding and runs over float modality embeddings (whisper's frames
+    [B, Se, d], qwen2-vl's patches [B, 8, d]); as in the reference it is a
+    dense tower (``_tower_cfg``), causal, with RoPE over the frames, or
+    M-RoPE over the patches' text ids (the tower keeps
+    ``mrope_sections``). Audio: ζ1 is the encoder's input and the device
+    tower's ζ2 the decoder's. VLM: the combined model runs its backbone
+    over ζ1 then ζ2 on text ids, not the patch grid, as the reference
+    does."""
+    # hospital tower: modality embeddings for audio and vlm, a token segment otherwise
+    modality = cfg.family in ("audio", "vlm")
+    s1, tcfg1 = _tower_stack_specs(cfg, n_tower, with_embed=not modality)
     s2, tcfg2 = _tower_stack_specs(cfg, n_tower, with_embed=True)
 
     specs0 = T.model_specs(cfg)
@@ -213,7 +217,7 @@ def llm_hybrid(cfg: ModelConfig, n_tower: int = 2, remat: bool = True) -> Hybrid
 
     def loss(t0, z1, z2, y):
         # labels cover the token region (hospital + device segments; the
-        # decoder's tokens for audio)
+        # decoder's tokens for audio and vlm)
         hidden = hidden_fn(t0, z1, z2)[:, -y.shape[1]:]
         # fused chunked head + cross-entropy: the full logits never materialize
         head_cfg = cfg.replace(tie_embeddings=False)

@@ -1,4 +1,4 @@
-"""Model assembly, every family but the VLM one (``repro/models/transformer.py``).
+"""Model assembly, every family (``repro/models/transformer.py``).
 
 Layer parameters stay stacked along a leading layer dimension, so the
 reference's parameter tree maps onto the port's leaf for leaf; where the
@@ -18,15 +18,20 @@ projected once from the encoder output (``seed_audio_caches``) and only
 read by decode. The MoE family (grok-1, deepseek-v3) keeps its
 ``first_dense_layers`` attention + MLP layers under ``"dense_layers"`` and
 the attention + MoE layers under ``"layers"``, and its KV (or MLA latent)
-caches in one stack under ``"kv"``, the dense layers' first.
-``draft_decode_step`` runs the first layers of the stack alone, the
-self-speculative draft. The VLM family raises "not ported yet".
+caches in one stack under ``"kv"``, the dense layers' first. The VLM
+family (qwen2-vl) is the dense family with M-RoPE: its training forward
+puts the stubbed patch embeddings in front of the tokens and gives them
+(t, h, w) grid ids (``_vlm_inputs``); decode is text only, as in the
+reference. ``draft_decode_step`` runs the first layers of the stack alone,
+the self-speculative draft.
 
 As in the reference, ``forward`` does not scale the audio family's token
-embedding by sqrt(d), while ``decode_step`` scales every family's.
+embedding by sqrt(d), scales the VLM family's by sqrt(d) rounded to bf16
+(90.5 at d 8192), while ``decode_step`` scales every family's by sqrt(d)
+in the embedding's dtype.
 
-The train path (``forward``, ``backbone_forward``, ``lm_loss``) runs the
-dense, MoE, ssm, hybrid and audio families under autograd (the scan's gradient is
+The train path (``forward``, ``backbone_forward``, ``lm_loss``) runs every
+family under autograd (the scan's gradient is
 ``kernels/ssm_scan.py::SSMScan``); ``remat`` wraps each layer, and each
 chunk of the fused head + cross-entropy, in ``torch.utils.checkpoint`` where
 the reference has ``jax.checkpoint``. The hybrid family's shared block is
@@ -49,12 +54,14 @@ from repro_torch.models.mlp import mlp_forward, mlp_specs
 from repro_torch.models.moe import moe_forward, moe_specs
 from repro_torch.models.quant import dequantize_rows, is_int8, quantize_rows
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
+    """The reference's ``ValueError(cfg.family)`` for a family that is not
+    an LLM family (the paper models)."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family!r} family is not ported yet")
+        raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -360,38 +367,65 @@ def _embed_scale(cfg: ModelConfig, dtype) -> float:
     return float(torch.tensor(np.sqrt(cfg.d_model), dtype=dtype))
 
 
+def _vlm_inputs(cfg: ModelConfig, params, tokens, vision_embeds):
+    """qwen2-vl: the stubbed patch embeddings [B, P, D] in front of the token
+    embeddings -> (x [B, P + S, D], positions_3d [B, P + S, 3] or None).
+    The tokens are scaled by sqrt(float32(d)) rounded to bf16, as the
+    reference scales them. The patches take the grid ids (0, i // side,
+    i % side) with side = max(1, int(sqrt(P))); the text continues at
+    max(h) + 1 on all three channels."""
+    x_txt = L.embed(params["embed"], tokens)
+    scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32))
+    x_txt = x_txt * float(scale.to(torch.bfloat16))
+    if vision_embeds is None:
+        return x_txt, None
+    B, P, S = vision_embeds.shape[0], vision_embeds.shape[1], tokens.shape[1]
+    x = torch.cat([vision_embeds.to(x_txt.dtype), x_txt], dim=1)
+    side = max(1, int(np.sqrt(P)))
+    idx = torch.arange(P, dtype=torch.int32, device=x.device)
+    p_vis = torch.stack([torch.zeros_like(idx), idx // side, idx % side], dim=-1)
+    t_txt = torch.arange(S, dtype=torch.int32, device=x.device) + ((P - 1) // side + 1)
+    p3 = torch.cat([p_vis, L.text_positions_3d(t_txt)], dim=0)
+    return x, p3.expand(B, P + S, 3)
+
+
 def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None, remat: bool = True,
             force_window: bool = False):
     """Training/prefill forward -> (hidden [B, S, D], aux_loss). The audio
-    family's ``extra_embeds`` are the encoder's frame embeddings [B, Se, D];
-    its token embedding is not scaled by sqrt(d), as in the reference (the
-    VLM front end is not ported yet)."""
+    family's ``extra_embeds`` are the encoder's frame embeddings [B, Se, D]
+    and its token embedding is not scaled by sqrt(d), as in the reference;
+    the VLM family's are the patch embeddings [B, P, D], put in front of
+    the tokens (``_vlm_inputs``), so the hidden states are [B, P + S, D]."""
+    positions_3d = None
     if cfg.family == "vlm":
-        raise NotImplementedError(f"the {cfg.family!r} family's front end is not ported yet")
-    x = L.embed(params["embed"], tokens)
+        x, positions_3d = _vlm_inputs(cfg, params, tokens, extra_embeds)
+    else:
+        x = L.embed(params["embed"], tokens)
     if cfg.family == "audio":
         x = audio_forward(params, x, extra_embeds, cfg, remat)
         return L.apply_norm(cfg.norm, params["final_norm"], x), torch.zeros((), device=x.device)
-    x = x * _embed_scale(cfg, x.dtype)
-    x, aux = backbone_forward(cfg, params, x, remat=remat, force_window=force_window)
+    if cfg.family != "vlm":
+        x = x * _embed_scale(cfg, x.dtype)
+    x, aux = backbone_forward(cfg, params, x, remat=remat, force_window=force_window,
+                              positions_3d=positions_3d)
     return L.apply_norm(cfg.norm, params["final_norm"], x), aux
 
 
 def backbone_forward(cfg: ModelConfig, params, x, *, remat=True, force_window=False,
                      positions_3d=None):
     """Run the layer stack over already-embedded inputs x [B, S, D] ->
-    (x, aux). The dense, MoE (its dense layers first; aux is the MoE
-    layers' load-balance loss, zero for the other families), ssm and hybrid
+    (x, aux). The dense and VLM (M-RoPE over ``positions_3d``, else over
+    the text ids), MoE (its dense layers first; aux is the MoE layers'
+    load-balance loss, zero for the other families), ssm and hybrid
     families; the audio family has no single stack (``audio_forward``) and
-    raises ``ValueError``, as in the reference; the VLM family raises "not
-    ported yet"."""
+    raises ``ValueError``, as in the reference."""
     _require_ported(cfg)
     if cfg.family == "audio":
         raise ValueError(cfg.family)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     windows = layer_windows(cfg, cfg.num_layers, force_window)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         x = dense_stack_forward(params["layers"], x, positions, cfg, windows, remat, positions_3d)
     elif cfg.family == "moe":
         nd = cfg.first_dense_layers
@@ -583,8 +617,13 @@ def chunked_lm_head_loss(cfg: ModelConfig, params, hidden, labels, remat=True):
 
 
 def lm_loss(cfg: ModelConfig, params, batch, remat=True, aux_weight=0.01, force_window=False):
+    """The head's mean cross-entropy over the labels (plus ``aux_weight``
+    times the MoE aux loss); the VLM family's P patch positions, which
+    have no labels, are dropped before the head."""
     hidden, aux = forward(cfg, params, batch["tokens"], extra_embeds=batch.get("extra_embeds"),
                           remat=remat, force_window=force_window)
+    if cfg.family == "vlm" and batch.get("extra_embeds") is not None:
+        hidden = hidden[:, batch["extra_embeds"].shape[1]:]
     return chunked_lm_head_loss(cfg, params, hidden, batch["labels"], remat) + aux_weight * aux
 
 
@@ -617,7 +656,7 @@ def make_decode_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype=torch
     if cfg.family in ("ssm", "hybrid"):
         sdtype = dtype if is_int8(dtype) else torch.float32
         groups["ssm"] = stacked(cfg.num_layers, SSM.mamba_state_specs(cfg, batch, sdtype))
-    if cfg.family in ("dense", "moe", "audio"):
+    if cfg.family in ("dense", "vlm", "moe", "audio"):
         groups["kv"] = stacked(cfg.num_layers,
                                A.make_kv_cache_specs(cfg, batch, cache_len, dtype))
     if cfg.family == "audio":

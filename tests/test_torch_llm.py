@@ -444,25 +444,25 @@ def test_cli_smoke_matches_runner_and_checkpoint_loads(tmp_path, capsys):
 
 
 def test_cli_asks_for_the_card_and_refuses_unported_arches():
-    """The CLI runs on the card unless asked for the CPU. --arch admits the
-    dense, MoE, ssm, hybrid and audio families (grok-1-314b,
-    deepseek-v3-671b, falcon-mamba-7b, zamba2-2.7b, whisper-medium) and
-    refuses the paper models and an arch absent from the port's registry
-    (qwen2-vl-72b)."""
+    """The CLI runs on the card unless asked for the CPU. --arch admits
+    every LLM family (grok-1-314b, deepseek-v3-671b, falcon-mamba-7b,
+    zamba2-2.7b, whisper-medium, qwen2-vl-72b) and refuses the paper
+    models, which are not LLM architectures. ``llm_hybrid``'s VLM arm
+    builds a hospital tower without an embedding, as its audio arm does."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         TR.main(CLI[2:])
     for arch in ("falcon-mamba-7b", "zamba2-2.7b", "whisper-medium", "grok-1-314b",
-                 "deepseek-v3-671b"):
+                 "deepseek-v3-671b", "qwen2-vl-72b"):
         assert TR.parse_args(["--arch", arch]).arch == arch
-    for arch in ("paper-cnn", "qwen2-vl-72b"):
-        with pytest.raises(SystemExit, match="not ported yet"):
+    for arch in ("paper-cnn",):
+        with pytest.raises(SystemExit, match="not an LLM architecture"):
             TR.parse_args(["--arch", arch])
     with pytest.raises(SystemExit):
         TR.parse_args(["--arch", "gemma3-1b", "--dp-clip", "1"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        llm_hybrid(get_config("falcon-mamba-7b", smoke=True).replace(family="vlm"))
+    vlm = llm_hybrid(get_config("qwen2-vl-72b", smoke=True))
+    assert "embed" not in vlm.specs1 and "embed" in vlm.specs2
 
 
 # ---------------------------------------------------------------------------

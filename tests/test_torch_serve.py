@@ -27,6 +27,7 @@ from repro.models import mlp as JM
 from repro.models import quant as JQ
 from repro.models import transformer as JT
 from repro_torch.common.config import ModelConfig, get_config, list_configs
+from repro_torch.common.pytree import tree_leaves
 from repro_torch.launch import engine as E
 from repro_torch.launch import serve
 from repro_torch.launch.profile_serve import kernel_split
@@ -96,15 +97,14 @@ def test_model_config_and_registry_match_reference():
     assert tf == jf
     assert list_configs() == ["deepseek-v3-671b", "falcon-mamba-7b", "gemma3-1b", "gemma3-4b",
                               "grok-1-314b", "nemotron-4-15b", "paper-cnn", "paper-lstm",
-                              "stablelm-1.6b", "whisper-medium", "zamba2-2.7b"]
+                              "qwen2-vl-72b", "stablelm-1.6b", "whisper-medium", "zamba2-2.7b"]
     for name in list_configs():
         for smoke in (False, True):
             got, want = get_config(name, smoke), jax_get_config(name, smoke)
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
             assert got.param_count() == want.param_count()
             assert got.resolved_head_dim == want.resolved_head_dim
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("qwen2-vl-72b")
+    assert get_config("qwen2-vl-72b").family == "vlm"  # no architecture is left unported
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
@@ -457,8 +457,11 @@ def test_temperature_sampling_is_seeded():
 def test_engine_refuses_unported_features():
     _, cfg = _configs("gemma3-1b")
     _, tp = _params("gemma3-1b")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.model_specs(cfg.replace(family="vlm"))
+    # the VLM family's specs are the dense family's; the paper models are no LLM family
+    assert [s.shape for s in tree_leaves(T.model_specs(cfg.replace(family="vlm")))] == \
+        [s.shape for s in tree_leaves(T.model_specs(cfg))]
+    with pytest.raises(ValueError, match="cnn"):
+        T.model_specs(cfg.replace(family="cnn"))
     assert E.parse_cache_dtype("int8") == torch.int8
     with pytest.raises(ValueError, match="unsupported cache dtype"):
         E.parse_cache_dtype("fp8")
@@ -604,14 +607,13 @@ def test_serve_cli_default_device_is_cuda():
 @pytest.mark.parametrize("flags", [["--arch", "qwen2-vl-72b", "--full"], ["--arch", "qwen2-vl-72b"],
                                    ["--arch", "deepseek-v3-671b"], ["--arch", "grok-1-314b"]])
 def test_serve_cli_refuses_unported(flags, capsys):
-    """The VLM config is refused; the MoE configs now parse (their serving:
-    tests/test_torch_moe.py)."""
-    if "qwen2-vl-72b" not in flags:
-        assert serve.parse_args(["--device", "cpu"] + flags).arch == flags[1]
-        return
+    """Every LLM architecture parses, the VLM and MoE configs too (their
+    serving: tests/test_torch_vlm.py, tests/test_torch_moe.py); a paper
+    model is refused."""
+    assert serve.parse_args(["--device", "cpu"] + flags).arch == flags[1]
     with pytest.raises(SystemExit):
-        serve.parse_args(["--device", "cpu"] + flags)
-    assert "not ported yet" in capsys.readouterr().err
+        serve.parse_args(["--device", "cpu", "--arch", "paper-cnn"])
+    assert "not an LLM architecture" in capsys.readouterr().err
 
 
 def test_profile_serve_splits_device_time():

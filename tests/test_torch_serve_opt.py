@@ -123,8 +123,8 @@ def test_draft_decode_step_guards():
     ssm = get_config("falcon-mamba-7b", smoke=True)
     with pytest.raises(ValueError, match="self-speculation unsupported"):
         T.draft_decode_step(ssm, tp, tok, caches, idx, 1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.draft_decode_step(cfg.replace(family="vlm"), tp, tok, caches, idx, 1)
+    logits, _ = T.draft_decode_step(cfg.replace(family="vlm"), tp, tok, caches, idx, 1)
+    assert tuple(logits.shape) == (1, 1, cfg.vocab_size)
     moe = get_config("grok-1-314b", smoke=True)
     mp = L.init_params(T.model_specs(moe), torch.Generator().manual_seed(0))
     logits, _ = T.draft_decode_step(moe, mp, tok, T.init_decode_caches(moe, 1, 8, torch.float32),

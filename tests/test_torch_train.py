@@ -158,20 +158,20 @@ def test_default_device_is_cuda_and_raises_without_it():
                                   ["--fault-nan", "0.1", "--smoke", "--arch", "deepseek-v3-671b"],
                                   ["--checkpoint", "ckpt", "--arch", "deepseek-v3-671b"]])
 def test_unported_flags_refuse(flag):
-    """Only --arch values outside the dense, MoE, ssm, hybrid and audio
-    families are still unported (the paper models, which are not LLM
-    architectures, and the VLM config); the MoE configs now parse with the
-    same flags (their runs: tests/test_torch_moe.py), as the dense --arch
+    """Only the paper models, which are not LLM architectures, are refused
+    as --arch values; the VLM and MoE configs parse with the same flags
+    (their runs: tests/test_torch_vlm.py, tests/test_torch_moe.py), as the dense --arch
     path runs (tests/test_torch_llm.py), the ssm and hybrid ones too
     (tests/test_torch_ssm_train.py), as do the population, fault and
     checkpoint flags (tests/test_torch_faults.py,
     tests/test_torch_population.py, tests/test_torch_checkpoint.py), and
     whisper-medium (tests/test_torch_audio.py)."""
-    moe = next((a for a in ("grok-1-314b", "deepseek-v3-671b") if a in flag), None)
-    if moe:
-        assert T.parse_args(["--device", "cpu"] + flag).arch == moe
+    llm = next((a for a in ("grok-1-314b", "deepseek-v3-671b", "qwen2-vl-72b") if a in flag),
+               None)
+    if llm:
+        assert T.parse_args(["--device", "cpu"] + flag).arch == llm
         return
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="not an LLM architecture"):
         T.parse_args(["--device", "cpu"] + flag)
 
 
