@@ -337,12 +337,40 @@ The VLM family, qwen2-vl-72b (phase 2c's case, then after 3u and 4k):
      the largest |logit| and equal greedy tokens; ``lm_loss`` over 4 and
      8 patch embeddings within rtol 1e-5; 2 training rounds (--pods 2,
      k = 0.25, b = 128) from one CPU-drawn model within rtol 1e-3.
+
+Scale-out (after 3x and 4l; phases 3i, 3n and 3o also print the traced
+FLOPs of one pod-step, ``launch/flops.py``, and the run's achieved share of
+the fp32 peak, 67 TFLOP/s, beside the card's name and power limit):
+  3y. gemma3-1b's program set (``launch/steps.py::build_programs``) at its
+     published widths, bf16 as the reference's programs, plain tensors (a
+     one-card mesh's layout: every constrain is the identity), for every
+     input shape: train_4k's train_step, exchange and global_agg,
+     prefill_32k's and decode_32k's serve_step, long_500k's serve_step
+     with force_window. seq_len is kept; the global batch starts at the
+     shape's own (PROGRAM_BATCH: train_step at 16, the prefill at 2) and
+     halves on an out-of-memory error; each cut is listed with the bytes
+     that the shape's own batch would need (decode: the caches' bytes; the
+     others: the measured peak's part past the weights, scaled) and what
+     forced it (memory, or the script's time limit). After a warm-up, the
+     synchronised wall ms, the traced FLOPs, the achieved TFLOP/s and
+     share of the bf16 peak (989 TFLOP/s), the peak device bytes; no
+     kernel of the port launches (the prefill takes the plain blockwise
+     route, the exchange compresses nothing);
+  3z. a one-rank NCCL process group and a (1, 1) [data, model] DeviceMesh:
+     the main path's ``HSGDRunner.run(mesh=)`` (2 c-hsgd rounds) gives
+     the same losses as the run without a mesh, bit for bit;
+  4m. each program's outputs at gemma3-1b's smoke widths (fp32) on the card
+     against the CPU from the same inputs: the loss and the exchange
+     message within rtol 1e-4, the updated parameters within 1e-5 of the
+     largest |parameter|, global_agg's within 1e-6, the logits and the
+     caches within 1e-4 of the largest |value|.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -392,6 +420,9 @@ from repro_torch.launch.engine import ServeEngine, sequential_generate  # noqa: 
 from repro_torch.launch.timing import device_ms  # noqa: E402
 from repro_torch.data.synthetic import llm_batch_fn  # noqa: E402
 from repro_torch.launch.steps import LLMRoundRunner, init_llm_params  # noqa: E402
+from repro_torch.launch.flops import traced_flops  # noqa: E402
+from repro_torch.common.config import INPUT_SHAPES  # noqa: E402
+from repro_torch.common.sharding import map_structure, structure_leaves  # noqa: E402
 from repro_torch.launch.train import (build_llm, parse_args, population_rounds,  # noqa: E402
                                       run_ehealth, run_llm, run_population_cli, setup_ehealth)
 from repro_torch.models import layers as L  # noqa: E402
@@ -606,6 +637,18 @@ VLM_TRAIN_ARGV = ["--arch", VLM_ARCH, "--steps", "4", "--compression-k", "0.25",
 VLM_TRAIN_CELL = (0, 4, {"fused_compress": 8})
 # phase 4l at smoke widths: a 4096-token block takes flash on the card
 VLM_PARITY_LEN, VLM_PARITY_GEN = 4096, 8
+# phase 3y: gemma3-1b's programs at published widths. Each starts at its
+# shape's own global batch, halved on out-of-memory, but for these two,
+# which start lower: train_step at 16 (a sample holds ~3.7 GB at its peak,
+# so 32 does not fit), the prefill at 2 for the script's time limit (a
+# sample is 1.6e14 FLOPs, most of them fp32 attention over 32 768 keys:
+# ~4 s). Each cut is printed with the bytes the own batch would need
+PROGRAM_ARCH = "gemma3-1b"
+PROGRAM_BATCH = {("train_4k", "train_step"): 16, ("prefill_32k", "serve_step"): 2}
+BF16_PEAK, FP32_PEAK = 989e12, 67e12  # H100 SXM5 dense tensor-core bf16, fp32 (data sheet)
+# phase 4m's smoke shapes: (seq_len, global_batch)
+PROGRAM_PARITY = {"train_4k": (32, 2), "prefill_32k": (32, 2), "decode_32k": (32, 2),
+                  "long_500k": (64, 1)}
 # checkpoints of phase 3g, inside the checkout's ignored build directory
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 
@@ -1407,9 +1450,10 @@ def check_ring_on_card(device):
           f"max |ring - float mean| {dev_}")
 
 
-def same_start_losses(*devices):
+def same_start_losses(*devices, mesh=None):
     """Per-step losses of PARITY_ROUNDS c-hsgd rounds on each device, all
-    from one initial model and one set of participant draws."""
+    from one initial model and one set of participant draws (on ``mesh``
+    when one is given)."""
     args = parse_args(MAIN_ARGV)
     gen = torch.Generator().manual_seed(args.seed)
     init = parts = None
@@ -1423,7 +1467,7 @@ def same_start_losses(*devices):
                                  for _ in range(PARITY_ROUNDS * eff_fed.lam)])
         state = init_state(torch.Generator(), model, eff_fed, data,
                            params=tree_map(lambda t: t.to(dev), init))
-        _, losses = runner.run(state, data, w, PARITY_ROUNDS, participants=parts)
+        _, losses = runner.run(state, data, w, PARITY_ROUNDS, participants=parts, mesh=mesh)
         out.append(losses.cpu())
     return out
 
@@ -1850,7 +1894,10 @@ def check_llm_paths(device, bw, flops):
                   f"torch.equal to plain; kernel ms (CUDA events around the launch) median "
                   f"{float(np.median(times))} min {min(times)} bound_ms {bound} "
                   f"bound/kernel {bound / float(np.median(times))}")
-        summary[tag] = {"steps_per_s": out["steps"] / out["wall_s"],
+        cfg = get_config(args.arch)  # the CLI's model (launch/train.py::build_llm)
+        share = pod_step_share(f"llm-{tag}", cfg, llm_hybrid(cfg, n_tower=1, remat=False), args,
+                               out["steps"] / out["wall_s"])
+        summary[tag] = {**share, "steps_per_s": out["steps"] / out["wall_s"],
                         "peak_device_bytes": out["peak_device_bytes"],
                         "launches": counts["fused_compress"],
                         "groups_ms": {str(list(k)): float(np.median(v[0]))
@@ -1944,7 +1991,7 @@ def busy_share(run):
 
 
 def check_train_cell(tag, device, args, cell, model=None, params=None, batch_fn=None,
-                     cli_argv=None, hold_messages=False):
+                     cli_argv=None, hold_messages=False, cfg=None):
     """Phases 3n, 3o and 3q: fixed rounds of ``model`` at ``args``' cadence
     on the card, the launch counters zeroed just before and read just
     after: exactly the launches ``cell`` (an entry of TRAIN_CELLS) pins and
@@ -1957,7 +2004,8 @@ def check_train_cell(tag, device, args, cell, model=None, params=None, batch_fn=
     keeps its first exchange's row groups and holds the kernel against
     plain on each (torch.equal), apart from the measured run so that the
     kept copies add nothing to its peak. Then one more round, timed and
-    profiled, for the busy share."""
+    profiled, for the busy share. With ``cfg`` (the model's config), the
+    traced FLOPs of one pod-step and the run's share of the fp32 peak."""
     layers, groups, pinned = cell
     want = train_launches(args, layers, groups)
     check(want == pinned, f"{tag}: launches derived {want}, pinned {pinned}")
@@ -2016,10 +2064,11 @@ def check_train_cell(tag, device, args, cell, model=None, params=None, batch_fn=
     print(f"[{tag}] one more round: {round_s} s ({args.p / round_s} steps/s), device busy "
           f"share {busy}, {kernels} kernels a step; device ms of the profiled round by kernel: "
           f"{top}")
+    share = pod_step_share(tag, cfg, model, args, steps / wall_s) if cfg is not None else {}
     del state, params
     return {"steps_per_s": steps / wall_s, "peak_device_bytes": peak, "busy_share": busy,
             "kernels_per_step": kernels, "launches": counts, "messages_max_abs_err": msg_err,
-            "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]), **share}
 
 
 def check_ssm_training(device):
@@ -2029,7 +2078,8 @@ def check_ssm_training(device):
     summary = {}
     argv = ["--arch", HYBRID_ARCH] + TRAIN_ARGV + ["--device", "cuda"]
     summary[HYBRID_ARCH] = check_train_cell("train-hybrid", device, parse_args(argv),
-                                            TRAIN_CELLS[HYBRID_ARCH], cli_argv=argv)
+                                            TRAIN_CELLS[HYBRID_ARCH], cli_argv=argv,
+                                            cfg=get_config(HYBRID_ARCH))
     torch.cuda.empty_cache()
     arch = "falcon-mamba-7b"
     args = parse_args(["--arch", arch] + TRAIN_ARGV + ["--device", "cuda"])
@@ -2040,7 +2090,7 @@ def check_ssm_training(device):
     batch_fn = llm_batch_fn(cfg, args.batch, args.seq, n_pods=args.pods, seed=args.seed,
                             device=device)
     summary[arch] = check_train_cell("train-ssm", device, args, TRAIN_CELLS[arch], model, params,
-                                     batch_fn)
+                                     batch_fn, cfg=cfg)
     del params
     torch.cuda.empty_cache()
     return summary
@@ -2520,6 +2570,202 @@ def check_vlm_parity(device):
     return {"logits_rel": logits_rel, "loss_rel": losses, "train_max_rel": rel}
 
 
+# ---------------------------------------------------------------------------
+# Scale-out: the pod-step's FLOPs, the program set, the one-rank mesh
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+
+
+def pod_step_share(tag, cfg, model, args, steps_per_s):
+    """Print and return the traced FLOPs (``launch/flops.py``) of one
+    pod-step of an LLM run (``make_hsgd_train_step`` on one pod's batch of
+    ``args``' shape, on meta tensors) and the run's achieved share of the
+    fp32 peak: pods x pod-step FLOPs x steps/s, the steps/s of the whole
+    run (exchanges and aggregations included), over 67 TFLOP/s."""
+    batch = tree_map(lambda t: t[0, 0].to("meta"),
+                     llm_batch_fn(cfg, args.batch, args.seq, n_pods=1, seed=args.seed)(0, 1))
+    params = {k: L.abstract_params(s, torch.float32) for k, s in model.specs().items()}
+    stale, _ = llm_steps.hybrid_stale_inputs(model, cfg.replace(dtype="float32"), batch)
+    flops = traced_flops(llm_steps.make_hsgd_train_step(model), params, stale, batch)
+    achieved = flops.total * args.pods * steps_per_s
+    print(f"[{tag}] one pod-step (batch {args.batch} x seq {args.seq}): traced FLOPs "
+          f"{flops.total} (matmul {flops.matmul}; launch/flops.py); {args.pods} pod-steps a "
+          f"step at {steps_per_s} steps/s: {achieved / 1e12} TFLOP/s, {achieved / FP32_PEAK} "
+          f"of the fp32 peak (67 TFLOP/s); card {smi_line()}")
+    return {"pod_step_flops": flops.total, "pod_step_matmul_flops": flops.matmul,
+            "fp32_peak_share": achieved / FP32_PEAK}
+
+
+def program_args(cfg, progs, name, gen, device):
+    """Real inputs at a program's meta shapes (a dense arch): the weights
+    drawn from ``gen`` (on its device) in ``cfg``'s dtype, token ids uniform
+    in the vocabulary, zero caches with the sentinel positions;
+    train_step's stale context is the exchange program's message on the
+    same weights and batch, and global_agg's params lead with [1]."""
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    ids = lambda x: torch.randint(0, cfg.vocab_size, tuple(x.shape), generator=gen,
+                                  device=gen.device, dtype=torch.int32).to(device)
+    if name == "serve_step":
+        meta = progs.entries[name][1][1]
+        batch = {"tokens": ids(meta["tokens"])}
+        if "caches" in meta:
+            batch["caches"] = T.init_decode_caches(cfg, meta["tokens"].shape[0],
+                                                   meta["caches"]["kv"][0].shape[2], dt, device)
+        return L.init_params(T.model_specs(cfg), gen, dt, device), batch
+    params = llm_steps.make_hybrid(cfg).init(gen, dt, device)
+    if name == "global_agg":
+        return (tree_map(lambda x: x.unsqueeze(0), params),)
+    batch = map_structure(ids, progs.entries["exchange"][1][1])
+    if name == "exchange":
+        return params, batch
+    return params, progs.entries["exchange"][0](params, batch), batch
+
+
+def run_program(cfg, shape_name, name, B, device):
+    """One program of gemma3-1b's set at global batch ``B``: traced FLOPs on
+    meta tensors, then a warm-up call and a timed one (synchronised wall
+    clock) on real tensors, no kernel of the port launching."""
+    shape = dataclasses.replace(INPUT_SHAPES[shape_name], global_batch=B)
+    progs = llm_steps.build_programs(cfg, shape)
+    fn, metas, _ = progs.entries[name]
+    flops = traced_flops(fn, *(map_structure(
+        lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), a) for a in metas))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    args = program_args(cfg, progs, name, torch.Generator(device=device).manual_seed(0), device)
+    reset_launch_counts()
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    check(not any(launch_counts.values()), f"{shape_name} {name}: launches {dict(launch_counts)}")
+    # the logits, the loss, the message or the aggregate: not the caches
+    # (written in place, and at decode_32k an fp32 view of them is 52 GiB)
+    head = {"serve_step": lambda o: o[0] if isinstance(o, tuple) else o,
+            "train_step": lambda o: o[1]}.get(name, lambda o: o)(out)
+    check(all(bool(torch.isfinite(x).all()) for x in structure_leaves(head)
+              if x.is_floating_point()), f"{shape_name} {name}: non-finite output")
+    fixed = sum(x.numel() * x.element_size() for x in structure_leaves(args[0]))
+    del args, out, head
+    return {"ms": ms, "flops": flops.total, "matmul_flops": flops.matmul, "peak_bytes": peak,
+            "bytes_before": before, "weight_bytes": fixed}
+
+
+def check_programs(device):
+    """Phase 3y: every program of gemma3-1b's set at its published widths,
+    the global batch halved from PROGRAM_BATCH on out-of-memory."""
+    cfg = get_config(PROGRAM_ARCH)
+    capacity = torch.cuda.get_device_properties(device).total_memory
+    summary = {}
+    for shape_name, shape in INPUT_SHAPES.items():
+        own = shape.global_batch
+        for name in llm_steps.build_programs(cfg, shape).entries:
+            B, ooms = PROGRAM_BATCH.get((shape_name, name), own), []
+            while True:
+                try:
+                    res = run_program(cfg, shape_name, name, B, device)
+                    break
+                except torch.cuda.OutOfMemoryError as e:
+                    ooms.append([B, str(e).splitlines()[0][:160]])
+                torch.cuda.empty_cache()
+                check(B > 1, f"{shape_name} {name}: out of memory at batch 1")
+                B //= 2
+            torch.cuda.empty_cache()
+            if shape_name.startswith("decode"):  # the caches alone, exactly
+                metas = llm_steps.build_programs(cfg, INPUT_SHAPES[shape_name]).entries[name][1]
+                own_bytes = sum(x.numel() * x.element_size()
+                                for x in structure_leaves(metas[1]["caches"]))
+                how = "the caches alone"
+            else:  # the measured peak, its part past the weights scaled to the own batch
+                fixed = res["bytes_before"] + res["weight_bytes"]
+                own_bytes = fixed + (res["peak_bytes"] - fixed) * own / B
+                how = "the measured peak past the weights, scaled"
+            tflops = res["flops"] / (res["ms"] / 1e3) / 1e12
+            # an out-of-memory at twice the batch, or an own batch past the card
+            cut = ("none" if B == own else "memory" if ooms or own_bytes > capacity
+                   else "the script's time limit")
+            print(f"[programs] {shape_name} {name}: batch {B} of {own}, cut for {cut} (own "
+                  f"batch needs {own_bytes} bytes by {how}; the card holds {capacity}; out of "
+                  f"memory at {ooms}) seq {INPUT_SHAPES[shape_name].seq_len}: {res['ms']} ms, traced "
+                  f"FLOPs {res['flops']} (matmul {res['matmul_flops']}), {tflops} TFLOP/s, "
+                  f"{tflops * 1e12 / BF16_PEAK} of the bf16 peak (989 TFLOP/s), peak "
+                  f"{res['peak_bytes']} bytes; card {smi_line()}")
+            summary[f"{shape_name}/{name}"] = {**res, "global_batch": B, "own_batch": own,
+                                               "own_batch_bytes": own_bytes, "ooms": ooms,
+                                               "cut_for": cut,
+                                               "tflops": tflops,
+                                               "bf16_peak_share": tflops * 1e12 / BF16_PEAK}
+    return summary
+
+
+def check_program_parity(device):
+    """Phase 4m: each program's outputs at gemma3-1b's smoke widths (fp32),
+    the same inputs on the CPU and on the card."""
+    cfg = get_config(PROGRAM_ARCH, smoke=True).replace(dtype="float32")
+    worst = {}
+    for shape_name, (seq, B) in PROGRAM_PARITY.items():
+        shape = dataclasses.replace(INPUT_SHAPES[shape_name], seq_len=seq, global_batch=B)
+        progs = llm_steps.build_programs(cfg, shape)
+        for name, (fn, _, _) in progs.entries.items():
+            args = program_args(cfg, progs, name, torch.Generator().manual_seed(0), "cpu")
+            card_args = map_structure(lambda t: t.to(device, copy=True), args)
+            want, got = structure_leaves(fn(*args)), structure_leaves(fn(*card_args))
+            check(len(want) == len(got), f"{shape_name} {name}: output trees differ")
+            if name == "train_step":  # (params..., loss)
+                rel = abs(float(got[-1]) - float(want[-1])) / abs(float(want[-1]))
+                check(rel <= 1e-4, f"{shape_name} train_step: loss differs by {rel} (> 1e-4)")
+                want, got = want[:-1], got[:-1]
+            tol = {"train_step": 1e-5, "global_agg": 1e-6}.get(name, 1e-4)
+            err = 0.0
+            for w, g in zip(want, got):
+                if not w.is_floating_point():
+                    check(torch.equal(w, g.cpu()), f"{shape_name} {name}: integer leaf differs")
+                    continue
+                scale = max(float(w.abs().max()), 1e-30)
+                err = max(err, float((g.cpu() - w).abs().max()) / scale)
+            print(f"[parity-programs] {shape_name} {name}: max |card - cpu| / max |cpu| = {err} "
+                  f"(tolerance {tol})")
+            check(err <= tol, f"{shape_name} {name}: card and CPU differ by {err} (> {tol})")
+            worst[f"{shape_name}/{name}"] = err
+    return worst
+
+
+def check_one_rank_mesh(device):
+    """Phase 3z: a one-rank NCCL process group and a (1, 1) [data, model]
+    mesh; the main path's run on it equals the run without it bit for bit
+    (a trivial mesh shards nothing, as in the reference)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    store = CKPT_DIR.parent / "chip_smoke_nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        plain, = same_start_losses(device)
+        meshed, = same_start_losses(device, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    print(f"[mesh] one-rank NCCL mesh {mesh}: losses {meshed.tolist()}, without the mesh "
+          f"{plain.tolist()}")
+    check(torch.equal(plain, meshed), "the one-rank mesh changed the main path's losses")
+    return meshed.tolist()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -2752,6 +2998,11 @@ def main() -> int:
     vlm_train = check_vlm_training(device, bw, flops)
     print(f"[vlm-train-summary] {json.dumps(vlm_train)}")
 
+    # -- phases 3y, 3z: scale-out, the program set and the one-rank mesh ----
+    programs = check_programs(device)
+    print(f"[programs-summary] {json.dumps(programs)}")
+    check_one_rank_mesh(device)
+
     # -- phase 4: the card against the CPU ---------------------------------
     on_cpu, on_card = same_start_losses(torch.device("cpu"), device)
     rel = float(((on_card - on_cpu).abs() / on_cpu.abs()).max())
@@ -2904,6 +3155,10 @@ def main() -> int:
     # -- phase 4l: the card against the CPU on the VLM family -----------------
     vlm_parity = check_vlm_parity(device)
     print(f"[vlm-parity-summary] {json.dumps(vlm_parity)}")
+
+    # -- phase 4m: the card against the CPU on the program set ---------------
+    program_parity = check_program_parity(device)
+    print(f"[program-parity-summary] {json.dumps(program_parity)}")
 
     # -- phase 5: summary ----------------------------------------------------
     kernels = [{

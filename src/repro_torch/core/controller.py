@@ -72,6 +72,7 @@ from repro_torch.core.hsgd import (
     HSGDState,
     dp_noise_generator,
     global_model,
+    place_on_mesh,
 )
 from repro_torch.models.split_model import HybridModel
 
@@ -494,7 +495,7 @@ class AdaptiveHSGDRunner:
     def run(self, state: HSGDState, data, group_weights,
             probe_generator: Optional[torch.Generator] = None,
             participants: Optional[torch.Tensor] = None,
-            dp_noise: Optional[Sequence[torch.Tensor]] = None) -> AdaptiveResult:
+            dp_noise: Optional[Sequence[torch.Tensor]] = None, mesh=None) -> AdaptiveResult:
         """Drive ``cfg.total_steps`` SGD iterations adaptively.
 
         Consumes ``state`` round by round (rebind the returned state).
@@ -506,6 +507,10 @@ class AdaptiveHSGDRunner:
         ``dp_noise`` (n matrices) replace the draws of the first n exchanges,
         e.g. with the reference's. Without ``dp_noise`` the DP rows come
         from ``dp_noise_generator`` seeded with the A_m generator's seed.
+
+        ``mesh`` shards the group axis as ``HSGDRunner.run(mesh=)`` does,
+        after the probe (which reads the whole data and the global model on
+        every process); the private legs are not sharded and raise.
         """
         cfg = self.cfg
         device = data["x1"].device
@@ -524,34 +529,41 @@ class AdaptiveHSGDRunner:
             kwargs["dp_clip"] = torch.tensor(cfg.dp_clip, dtype=torch.float32, device=device)
             if dp_noise is None:
                 kwargs["dp_generator"] = dp_noise_generator(state.generator.initial_seed(), device)
-        losses: List[np.ndarray] = []
-        exchanges = 0
-        while not core.done:
-            plan, (k_frac, levels) = core.plan()
-            if core.privacy_exhausted:
-                break  # refused round: executing it would bust the ε budget
-            fn = self.runner.round_fn(plan.P, plan.Q, k_frac, levels,
-                                      collect_stats=True,
-                                      dp=dp, secure_agg=cfg.secure_agg)
-            lam = plan.P // plan.Q
-            draws = slice(exchanges, exchanges + lam)
-            if dp:
-                kwargs["dp_sigma"] = torch.tensor(plan.dp_sigma, dtype=torch.float32,
-                                                  device=device)
-                if dp_noise is not None:
-                    kwargs["dp_noise"] = dp_noise[draws]
-            if cfg.secure_agg:
-                # keyed on TrainConfig.seed, as the reference keys them
-                kwargs["agg_masks"] = F.secure_agg_masks(
-                    state.theta2, self.train.seed, len(core.history))
+        state, data, group_weights, axis = place_on_mesh(state, data, group_weights, mesh)
+        if axis is not None and (dp or cfg.secure_agg):
+            raise ValueError("the private legs (DP noise, secure-aggregation masks) draw "
+                             "whole-M matrices and do not run group-sharded")
+        with F.group_axis(axis):
             if participants is not None:
-                kwargs["participants"] = participants[draws]
-            state, stats = fn(state, data, group_weights, plan.eta, **kwargs)
-            exchanges += lam
-            names = list(stats)  # one copy to the host (and sync) a round
-            stats = dict(zip(names, torch.stack([stats[k] for k in names]).cpu().numpy()))
-            losses.append(stats["loss"])
-            core.record(plan, stats)
+                participants = torch.stack([F.local_rows(p) for p in participants])
+            losses: List[np.ndarray] = []
+            exchanges = 0
+            while not core.done:
+                plan, (k_frac, levels) = core.plan()
+                if core.privacy_exhausted:
+                    break  # refused round: executing it would bust the ε budget
+                fn = self.runner.round_fn(plan.P, plan.Q, k_frac, levels,
+                                          collect_stats=True,
+                                          dp=dp, secure_agg=cfg.secure_agg)
+                lam = plan.P // plan.Q
+                draws = slice(exchanges, exchanges + lam)
+                if dp:
+                    kwargs["dp_sigma"] = torch.tensor(plan.dp_sigma, dtype=torch.float32,
+                                                      device=device)
+                    if dp_noise is not None:
+                        kwargs["dp_noise"] = dp_noise[draws]
+                if cfg.secure_agg:
+                    # keyed on TrainConfig.seed, as the reference keys them
+                    kwargs["agg_masks"] = F.secure_agg_masks(
+                        state.theta2, self.train.seed, len(core.history))
+                if participants is not None:
+                    kwargs["participants"] = participants[draws]
+                state, stats = fn(state, data, group_weights, plan.eta, **kwargs)
+                exchanges += lam
+                names = list(stats)  # one copy to the host (and sync) a round
+                stats = dict(zip(names, torch.stack([stats[k] for k in names]).cpu().numpy()))
+                losses.append(stats["loss"])
+                core.record(plan, stats)
 
         losses_flat = (np.concatenate(losses) if losses
                        else np.zeros((0,), np.float32))

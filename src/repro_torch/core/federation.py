@@ -6,16 +6,104 @@ agreement of Algorithm 1 line 13, the secure-aggregation ring of
 ``repro/core/federation.py`` (pairwise int32 masks drawn with numpy, bit for
 bit the reference's, and eq. (1) over masked fixed-point uplinks), and the
 fault-tolerant layer's screening statistics and robust eq. (1).
+
+Group sharding: the reference tags every [M, ...] tensor with the logical
+"group" axis, so under a mesh eq. (2) lowers to a cross-group collective.
+The port shards the group axis by hand, in SPMD style: under
+``group_axis(axis)`` each process holds its own [M/n, ...] slice of the
+groups as plain tensors, and every function here that reads across groups
+(eq. (2), the broadcasts, the A_m draws, the group means of the losses)
+works on the local slice and meets the other processes through
+``torch.distributed`` collectives over the mesh's horizontal dimensions.
+Outside it (a single device, or a mesh whose horizontal size does not
+divide M) nothing changes.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.common.config import FederationConfig
 from repro_torch.common.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+
+class GroupAxis(NamedTuple):
+    """The group axis M split over ``size`` processes: this one holds the
+    groups [rank · M/size, (rank + 1) · M/size), and ``group`` is the
+    process group over the mesh's horizontal dimensions."""
+
+    group: object
+    rank: int
+    size: int
+
+
+_GROUP_AXIS: Optional[GroupAxis] = None
+
+
+@contextlib.contextmanager
+def group_axis(axis: Optional[GroupAxis]):
+    """Run the federation's cross-group functions over ``axis`` (None: the
+    single-process layout)."""
+    global _GROUP_AXIS
+    prev = _GROUP_AXIS
+    _GROUP_AXIS = axis
+    try:
+        yield
+    finally:
+        _GROUP_AXIS = prev
+
+
+def mesh_group_axis(mesh, num_groups: int, rules=None) -> Optional[GroupAxis]:
+    """The ``GroupAxis`` that puts M = ``num_groups`` groups on ``mesh``'s
+    horizontal dimensions (the logical "group" rule, ``group_sharding``);
+    None when they hold one process or do not divide M."""
+    from repro_torch.common.sharding import group_sharding, mesh_axes
+
+    entry = group_sharding((num_groups,), mesh, rules)[0]
+    if entry is None:
+        return None
+    names = entry if isinstance(entry, tuple) else (entry,)
+    size = int(np.prod([mesh_axes(mesh)[n] for n in names]))
+    if size <= 1:
+        return None
+    sub = mesh[names[0]] if len(names) == 1 else mesh[names]._flatten()
+    return GroupAxis(sub.get_group(), sub.get_local_rank(), size)
+
+
+def local_rows(x: torch.Tensor) -> torch.Tensor:
+    """This process's rows of a tensor whose leading axis is the whole M
+    (all of them outside ``group_axis``)."""
+    if _GROUP_AXIS is None:
+        return x
+    m = x.shape[0] // _GROUP_AXIS.size
+    return x[_GROUP_AXIS.rank * m:(_GROUP_AXIS.rank + 1) * m]
+
+
+def local_group_count(M: int) -> int:
+    return M if _GROUP_AXIS is None else M // _GROUP_AXIS.size
+
+
+def group_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` over the processes of the group axis (``x`` itself
+    outside it)."""
+    if _GROUP_AXIS is None:
+        return x
+    import torch.distributed as dist
+
+    x = x.clone()
+    dist.all_reduce(x, group=_GROUP_AXIS.group)
+    return x
+
+
+def group_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of every element of a group-leading tensor ([M, ...], local
+    rows under ``group_axis``) over all M groups."""
+    if _GROUP_AXIS is None:
+        return torch.mean(x)
+    return group_sum(torch.sum(x)) / (x.numel() * _GROUP_AXIS.size)
 
 
 def local_aggregate(theta2_active, mask: Optional[torch.Tensor] = None):
@@ -257,21 +345,25 @@ def robust_local_aggregate(theta2_active, pmask: torch.Tensor, trust: torch.Tens
 
 
 def global_aggregate(theta, group_weights: torch.Tensor):
-    """Eq. (2): weighted mean over groups. [M, ...] -> [...]."""
-    w = group_weights / torch.sum(group_weights)
+    """Eq. (2): weighted mean over groups. [M, ...] -> [...]. Under
+    ``group_axis`` the [M] weights are whole and the leaves local: each
+    process sums its groups' share and the shares are all-reduced."""
+    w = local_rows(group_weights / torch.sum(group_weights))
 
     def agg(x):
         wb = w.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
-        return torch.sum(x * wb, dim=0)
+        return group_sum(torch.sum(x * wb, dim=0))
 
     return tree_map(agg, theta)
 
 
 def broadcast_to_groups(theta, M: int):
-    """Send the global model back to every group. [...] -> [M, ...].
+    """Send the global model back to every group. [...] -> [M, ...] (this
+    process's M/n under ``group_axis``).
 
     Materialized (not an expanded view), so each group's copy can be
     updated on its own."""
+    M = local_group_count(M)
     return tree_map(lambda x: x.unsqueeze(0).expand((M,) + x.shape).clone(), theta)
 
 
@@ -286,10 +378,11 @@ def sample_participants(generator: torch.Generator, fed: FederationConfig,
     """A_m + ξ_m: per-group device subset (== its samples). [M, A] indices.
 
     Drawn from ``generator`` (a CPU generator) one group at a time, then
-    moved to ``device``."""
+    moved to ``device``. Under ``group_axis`` every process draws all M
+    and keeps its own rows, so the draws stay those of one process."""
     M, K, A = fed.num_groups, fed.devices_per_group, fed.sampled_devices
     idx = torch.stack([torch.randperm(K, generator=generator)[:A] for _ in range(M)])
-    return idx.to(device)
+    return local_rows(idx).to(device)
 
 
 def _fill_value(dtype: torch.dtype):

@@ -175,7 +175,7 @@ def _apply_sgd(state: HSGDState, lr: float, g0, g1, g2) -> HSGDState:
 def local_sgd_step(model: HybridModel, state: HSGDState, lr: float) -> Tuple[HSGDState, torch.Tensor]:
     """One iteration of lines 22–26 for every group and sampled device."""
     losses, g0, g1, g2 = _local_grads(model, state)
-    return _apply_sgd(state, lr, g0, g1, g2), torch.mean(losses)
+    return _apply_sgd(state, lr, g0, g1, g2), F.group_mean(losses)
 
 
 def _worker_dev2(g, gbar, lead: int):
@@ -208,11 +208,11 @@ def local_sgd_step_stats(
     }
     gnorm2 = tree_dot(gbar, gbar)
     delta2 = (
-        torch.mean(_worker_dev2(g0, gbar["theta0"], 1) + _worker_dev2(g1, gbar["theta1"], 1))
-        + torch.mean(_worker_dev2(g2, gbar["theta2"], 2))
+        F.group_mean(_worker_dev2(g0, gbar["theta0"], 1) + _worker_dev2(g1, gbar["theta1"], 1))
+        + F.group_mean(_worker_dev2(g2, gbar["theta2"], 2))
     )
     new_state = _apply_sgd(state, lr, g0, g1, g2)
-    return new_state, torch.mean(losses), {"gbar": gbar, "gnorm2": gnorm2, "delta2": delta2}
+    return new_state, F.group_mean(losses), {"gbar": gbar, "gnorm2": gnorm2, "delta2": delta2}
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +439,37 @@ def _global_grad_zeros(state: HSGDState):
     }
 
 
+def state_shardings(state: HSGDState, mesh, rules=None) -> HSGDState:
+    """Per-leaf specs of an HSGDState on ``mesh``: the leading group axis M
+    rides the mesh's horizontal ("data"/"pod") axes via the logical "group"
+    rule; the generator and step stay replicated (None). Non-divisible
+    leaves fall back to replication, so a trivial mesh degrades to the
+    single-device layout."""
+    from repro_torch.common.sharding import group_sharding
+
+    grouped = lambda tree: tree_map(lambda x: group_sharding(tuple(x.shape), mesh, rules), tree)
+    return HSGDState(grouped(state.theta0), grouped(state.theta1), grouped(state.theta2),
+                     grouped(state.stale), grouped(state.batch), None, None)
+
+
+def place_on_mesh(state: HSGDState, data, group_weights, mesh):
+    """(state, data, weights, axis) for ``mesh``: with a ``GroupAxis`` (a
+    mesh whose horizontal dimensions hold more than one process and divide
+    M), every [M, ...] leaf of the state and the data is cut to this
+    process's groups, and the [M] weights stay whole; otherwise all are
+    returned as they are, with axis None."""
+    axis = None if mesh is None else F.mesh_group_axis(mesh, len(group_weights))
+    if axis is None:
+        return state, data, group_weights, None
+    with F.group_axis(axis):
+        rows = lambda tree: tree_map(F.local_rows, tree)
+        state = state._replace(theta0=rows(state.theta0), theta1=rows(state.theta1),
+                               theta2=rows(state.theta2), stale=rows(state.stale),
+                               batch=rows(state.batch))
+        data = rows(data)
+    return state, data, group_weights, axis
+
+
 # Second word of the DP noise seed (``SeedSequence([seed, DP_NOISE_STREAM])``),
 # so the noise generator never shares a stream with the A_m generator.
 DP_NOISE_STREAM = 5
@@ -471,7 +502,7 @@ class HSGDRunner:
     _round_cache: Dict = field(default_factory=dict, compare=False, repr=False)
 
     def run(self, state: HSGDState, data, group_weights, rounds: int,
-            participants: Optional[torch.Tensor] = None):
+            participants: Optional[torch.Tensor] = None, mesh=None):
         """Execute ``rounds`` global rounds; returns (state, per-step losses).
 
         Each round: global aggregation, then Λ × (exchange, Q SGD steps).
@@ -479,19 +510,31 @@ class HSGDRunner:
         ``exchange(idx=)`` does. The caller's ``state`` is consumed — this
         may update it in place, as the reference donates it — so rebind the
         returned state. Losses stay on the state's device, one per step.
+
+        A ``mesh`` (a ``DeviceMesh``, one process per card) whose horizontal
+        dimensions divide M shards the group axis over them
+        (``place_on_mesh``): each process runs its M/n groups, the
+        cross-group reductions of eq. (2) and the loss means are collectives,
+        and the returned state holds this process's groups. The losses are
+        every process's. Any other mesh leaves the run as it is.
         """
         fed, train = self.fed, self.train
         if participants is not None and participants.shape[0] != rounds * fed.lam:
             raise ValueError(f"participants holds {participants.shape[0]} draws; "
                              f"{rounds} rounds need rounds·Λ = {rounds * fed.lam}")
+        state, data, group_weights, axis = place_on_mesh(state, data, group_weights, mesh)
         lr_fn = halving_schedule(train.learning_rate, train.lr_halve_every)
         losses = []
-        for r in range(rounds):
-            part = None if participants is None else participants[r * fed.lam:(r + 1) * fed.lam]
-            state, loss = self._round_impl(state, data, group_weights, lr_fn, fed.local_interval,
-                                           fed.lam, train.compression_k,
-                                           train.quantization_bits, False, participants=part)
-            losses.append(loss)
+        with F.group_axis(axis):
+            if participants is not None:
+                participants = torch.stack([F.local_rows(p) for p in participants])
+            for r in range(rounds):
+                part = (None if participants is None
+                        else participants[r * fed.lam:(r + 1) * fed.lam])
+                state, loss = self._round_impl(state, data, group_weights, lr_fn,
+                                               fed.local_interval, fed.lam, train.compression_k,
+                                               train.quantization_bits, False, participants=part)
+                losses.append(loss)
         out = torch.cat(losses) if losses else torch.zeros(0, device=data["x1"].device)
         return state, out
 

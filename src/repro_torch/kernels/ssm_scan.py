@@ -26,7 +26,9 @@ the port's copy of ``repro/kernels/ref.py::ssm_scan_ref``): loops over t of
 a multiply, then an add, on fp32 tensors. ``ssm_scan`` is ``SSMScan``'s
 autograd route; forward and backward route by the tensors' device alone:
 the plain versions for CPU tensors, the kernels for CUDA tensors, with no
-fallback.
+fallback. Meta tensors (shapes only: the FLOP count and the dry run) take
+``ssm_scan_meta``/``ssm_scan_bwd_meta``, the plain versions' outputs and
+operations in bulk.
 
 Kernels against plain versions on the card: bit-identical (each kernel
 rounds every product and every sum apart, as the eager ops do).
@@ -52,6 +54,24 @@ def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor,
         h = a[:, t].float() * h + b[:, t].float()
         hs[:, t] = h
     return hs, h.to(h0.dtype)
+
+
+def ssm_scan_meta(a: torch.Tensor, b: torch.Tensor,
+                  h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version's outputs for meta tensors (a shape, no data):
+    every state from one multiply and one add an element, the operations the
+    plain version does, in bulk, so a FLOP count or a dry run over meta
+    tensors sees them without T steps of dispatch."""
+    hs = (a.float() * b.float() + b.float()).to(a.dtype)
+    return hs, (hs[:, -1].float() + h0.float()).to(h0.dtype)
+
+
+def ssm_scan_bwd_meta(a: torch.Tensor, h0: torch.Tensor, hs: torch.Tensor, d_hs: torch.Tensor,
+                      d_last: torch.Tensor):
+    """The plain backward's outputs for meta tensors, from its three
+    operations an element (g = ∂hs + a·g, ∂a = g·h) in bulk."""
+    g = a * d_hs + d_hs
+    return g * hs, g, (a[:, 0] * g[:, 0] + d_last).to(h0.dtype)
 
 
 def ssm_scan_bwd_ref(a: torch.Tensor, h0: torch.Tensor, hs: torch.Tensor, d_hs: torch.Tensor,
@@ -156,7 +176,7 @@ class SSMScan(torch.autograd.Function):
         if any(ctx.needs_input_grad) and any(x.dtype != torch.float32 for x in (a, b, h0)):
             raise TypeError(f"the scan's backward takes float32 only, got a {a.dtype}, "
                             f"b {b.dtype}, h0 {h0.dtype} that require grad")
-        fwd = ssm_scan_ref if a.device.type == "cpu" else ssm_scan_cuda
+        fwd = {"cpu": ssm_scan_ref, "meta": ssm_scan_meta}.get(a.device.type, ssm_scan_cuda)
         hs, h_last = fwd(a, b, h0)
         ctx.save_for_backward(a, h0, hs)
         ctx.set_materialize_grads(True)  # a missing output gradient is zeros
@@ -165,7 +185,8 @@ class SSMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_hs, d_last):
         a, h0, hs = ctx.saved_tensors
-        bwd = ssm_scan_bwd_ref if a.device.type == "cpu" else ssm_scan_bwd_cuda
+        bwd = {"cpu": ssm_scan_bwd_ref, "meta": ssm_scan_bwd_meta}.get(a.device.type,
+                                                                      ssm_scan_bwd_cuda)
         da, db, d_h0 = bwd(a, h0, hs, d_hs.contiguous(), d_last.contiguous())
         need = ctx.needs_input_grad
         return (da if need[0] else None, db if need[1] else None, d_h0 if need[2] else None)

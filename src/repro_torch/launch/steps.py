@@ -28,24 +28,124 @@ What differs from the reference, and why:
     exchange stay the message's row-group count whatever G is.
   * Gradients are ``torch.autograd.grad`` on detached copies of a worker's
     leaves; the probe step's shards are a loop.
-  * The mesh and dry-run programs (shardings, input specs, the plain,
-    prefill and decode steps) are not ported.
+  * The program set (``build_programs``) describes its inputs as meta
+    tensors with a logical-axes tree beside them, where the reference has
+    ``ShapeDtypeStruct``s; ``build_shardings`` turns the axes into DTensor
+    placements on a ``DeviceMesh``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.common.config import FederationConfig, ModelConfig
+from repro_torch.common.config import FederationConfig, InputShape, ModelConfig
 from repro_torch.common.pytree import (tree_dot, tree_flatten, tree_leaves, tree_map,
                                        tree_unflatten)
+from repro_torch.common.sharding import (leading_slices, map_axes, map_structure,
+                                         named_placements, weight_mode)
 from repro_torch.core import comm_model as CM
 from repro_torch.core.controller import AdaptiveConfig, ControllerCore, probe_from_stats
 from repro_torch.kernels.compress import compress_pytree
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.split_model import HybridModel, llm_hybrid
+
+VIS_PATCHES = 1024  # stubbed vision patches prepended for the VLM arch
+
+# long_500k needs sub-quadratic attention: run only where that holds.
+LONG_CTX_OK = {"gemma3-1b", "gemma3-4b", "zamba2-2.7b", "falcon-mamba-7b"}
+
+
+# ---------------------------------------------------------------------------
+# Sharding helpers
+# ---------------------------------------------------------------------------
+
+
+def build_shardings(shapes_tree, axes_tree, mesh, rules=None):
+    """Tree of tensors + logical-axes tree -> tree of DTensor placements on
+    ``mesh`` (``logical_to_spec`` + ``divisible_spec``; axes None =
+    replicated)."""
+    return map_structure(lambda x, axes: named_placements(x.shape, axes, mesh, rules),
+                         shapes_tree, axes_tree)
+
+
+def _dtype(cfg: ModelConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _meta(shape, dtype):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# Input specs
+# ---------------------------------------------------------------------------
+
+
+def hybrid_train_inputs(cfg: ModelConfig, shape: InputShape):
+    """Meta tensors + logical axes for the HSGD training batch."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = _dtype(cfg)
+    tok_axes = ("batch", "seq")
+    emb_axes = ("batch", "seq", None)
+    if cfg.family == "vlm":
+        pv = VIS_PATCHES
+        sds = {"x1": _meta((B, pv, cfg.d_model), dt), "x2": _meta((B, S - pv), torch.int32),
+               "y": _meta((B, S - pv), torch.int32)}
+        axes = {"x1": emb_axes, "x2": tok_axes, "y": tok_axes}
+    elif cfg.family == "audio":
+        sds = {"x1": _meta((B, cfg.encoder_seq, cfg.d_model), dt),
+               "x2": _meta((B, S), torch.int32), "y": _meta((B, S), torch.int32)}
+        axes = {"x1": emb_axes, "x2": tok_axes, "y": tok_axes}
+    else:
+        s1 = S // 2
+        sds = {"x1": _meta((B, s1), torch.int32), "x2": _meta((B, S - s1), torch.int32),
+               "y": _meta((B, S), torch.int32)}
+        axes = {"x1": tok_axes, "x2": tok_axes, "y": tok_axes}
+    return sds, axes
+
+
+def hybrid_stale_inputs(model: HybridModel, cfg: ModelConfig, batch):
+    """Shapes of the stale exchange context (ζ1, ζ2, θ0 snapshot), the
+    towers run on the meta device (no FLOPs)."""
+    dt = _dtype(cfg)
+    meta = lambda x: x.to("meta")
+    with torch.no_grad():
+        z1 = model.h1(L.abstract_params(model.specs1, dt), meta(batch["x1"]))
+        z2 = model.h2(L.abstract_params(model.specs2, dt), meta(batch["x2"]))
+    sds = {"theta0": L.abstract_params(model.specs0, dt), "z1": z1, "z2": z2}
+    axes = {"theta0": L.axes_tree(model.specs0), "z1": ("batch", "seq", None),
+            "z2": ("batch", "seq", None)}
+    return sds, axes
+
+
+def inference_inputs(cfg: ModelConfig, shape: InputShape, force_window: bool):
+    """(prefill | decode) inputs for the plain architecture."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = _dtype(cfg)
+    if shape.kind == "prefill":
+        sds: Dict[str, Any] = {"tokens": _meta((B, S), torch.int32)}
+        axes: Dict[str, Any] = {"tokens": ("batch", "seq")}
+        if cfg.family == "vlm":
+            sds["tokens"] = _meta((B, S - VIS_PATCHES), torch.int32)
+            sds["extra_embeds"] = _meta((B, VIS_PATCHES, cfg.d_model), dt)
+            axes["extra_embeds"] = ("batch", "seq", None)
+        elif cfg.family == "audio":
+            sds["extra_embeds"] = _meta((B, cfg.encoder_seq, cfg.d_model), dt)
+            axes["extra_embeds"] = ("batch", "seq", None)
+        return sds, axes
+    # decode: one token + caches
+    cache_len = S
+    if force_window and cfg.sliding_window:
+        cache_len = min(S, cfg.sliding_window)
+    cache_specs, cache_axes = T.make_decode_caches(cfg, B, cache_len, dt)
+    caches = {k: tuple(_meta(c.shape, c.dtype) for c in v) for k, v in cache_specs.items()}
+    sds = {"tokens": _meta((B, 1), torch.int32), "caches": caches}
+    axes = {"tokens": ("batch", None), "caches": cache_axes}
+    return sds, axes
 
 
 def make_hybrid(cfg: ModelConfig, n_tower: int = 2, remat: bool = True) -> HybridModel:
@@ -60,6 +160,15 @@ def _eta(lr) -> float:
 def _pod(tree, g: int):
     """Pod ``g``'s slice (views) of a tree whose leaves lead with [G]."""
     return tree_map(lambda x: x[g], tree)
+
+
+def _local_pods(tree):
+    """The pod slices (views) of a [G]-leading tree that this process
+    computes: every pod of plain tensors; of DTensors sharded over "pod",
+    the local pods, each on the rest of the mesh (``leading_slices``)."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [leading_slices(x) for x in leaves]
+    return [tree_unflatten(treedef, [s[j] for s in per_leaf]) for j in range(len(per_leaf[0]))]
 
 
 def _grads(loss_fn, tree):
@@ -175,9 +284,9 @@ def make_exchange_step(model: HybridModel, compression_k: float = 0.0, quant: in
             if n_pods is None:
                 return (model.h1(params["theta1"], batch["x1"]),
                         model.h2(params["theta2"], batch["x2"]))
-            z1 = [model.h1(_pod(params["theta1"], g), batch["x1"][g]) for g in range(n_pods)]
-            z2 = [model.h2(_pod(params["theta2"], g), batch["x2"][g]) for g in range(n_pods)]
-            return torch.stack(z1), torch.stack(z2)
+            pods = zip(_local_pods(params), _local_pods(batch))
+            z = [(model.h1(p["theta1"], b["x1"]), model.h2(p["theta2"], b["x2"])) for p, b in pods]
+            return torch.stack([a for a, _ in z]), torch.stack([b for _, b in z])
 
     def exchange(params, batch, dp_clip=None, dp_sigma=None, dp_noise=None, dp_generator=None):
         z1, z2 = towers(params, batch)
@@ -237,6 +346,143 @@ def make_global_agg():
         return params
 
     return agg
+
+
+# ---------------------------------------------------------------------------
+# Plain (non-federated) steps
+# ---------------------------------------------------------------------------
+
+
+def make_plain_train_step(cfg: ModelConfig, lr: float = 1e-3, force_window=False):
+    """Baseline sync-DP training step (beyond-paper comparison point):
+    step(params, batch) -> (params updated in place, loss); ``batch`` holds
+    "tokens" and "labels" (and "extra_embeds" for audio/VLM)."""
+
+    def step(params, batch):
+        loss, grads = _grads(lambda p: T.lm_loss(cfg, p, batch, remat=True,
+                                                 force_window=force_window), params)
+        return _apply_update(params, grads, _eta(lr)), loss
+
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """step(params, batch) -> the last position's logits [B, 1, V]."""
+
+    def step(params, batch):
+        with torch.no_grad():
+            hidden, _ = T.forward(cfg, params, batch["tokens"],
+                                  extra_embeds=batch.get("extra_embeds"), remat=True)
+            return T.logits_from_hidden(cfg, params, hidden[:, -1:])
+
+    return step
+
+
+def make_decode_step(cfg: ModelConfig, force_window: bool = False):
+    """step(params, batch) -> (logits [B, 1, V], caches updated in place),
+    the token written at ``batch_index_default``."""
+
+    def step(params, batch):
+        index = batch_index_default(batch)
+        with torch.no_grad(), weight_mode("fsdp"):  # decode: weights stay sharded
+            return T.decode_step(cfg, params, batch["tokens"], batch["caches"], index,
+                                 force_window=force_window)
+
+    return step
+
+
+def batch_index_default(batch) -> int:
+    """Decode write position: mid-cache (static for the dry run). The cache
+    length lives on axis 2 of the first stacked leaf ([L, B, S, ...]) in
+    sorted-key order."""
+    caches = batch["caches"]
+    for k in sorted(caches):
+        for leaf in caches[k]:
+            if leaf.dim() >= 3:
+                return leaf.shape[2] // 2
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Assembled program set per (arch, shape)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Programs:
+    """Callables + (input meta tensors, axes) per program."""
+
+    entries: Dict[str, Tuple[Callable, Tuple, Tuple]]  # name -> (fn, args, axes)
+
+
+def _pod_train_step(step):
+    """The reference's ``vmap(step)`` over [G] pod-stacked trees, as a loop
+    over the pods this process computes (all of them on plain tensors, its
+    own on a mesh with a "pod" axis): each pod's params are updated in place
+    through their views; the losses of those pods are stacked."""
+
+    def pod_step(params, stale, batch):
+        pods = zip(_local_pods(params), _local_pods(stale), _local_pods(batch))
+        return params, torch.stack([step(p, s, b)[1] for p, s, b in pods])
+
+    return pod_step
+
+
+def _lead(tree, axes, n: int, lead_axis):
+    """Every leaf with a leading [n] axis tagged ``lead_axis``."""
+    return (map_structure(lambda x: _meta((n,) + tuple(x.shape), x.dtype), tree),
+            map_axes(lambda a: (lead_axis,) + tuple(a), axes))
+
+
+def build_programs(cfg: ModelConfig, shape: InputShape, *, n_tower: int = 2,
+                   multi_pod: bool = False) -> Programs:
+    """train_step / exchange / global_agg for a training shape, serve_step
+    (prefill or decode) otherwise; the multi-pod programs lead with [G = 2]
+    pods on the "pod" mesh axis."""
+    dt = _dtype(cfg)
+    entries: Dict[str, Tuple[Callable, Tuple, Tuple]] = {}
+    force_window = shape.name == "long_500k"
+
+    if shape.kind == "train":
+        model = make_hybrid(cfg, n_tower=n_tower)
+        p_sds = {k: L.abstract_params(s, dt) for k, s in model.specs().items()}
+        p_axes = {k: L.axes_tree(s) for k, s in model.specs().items()}
+        b_sds, b_axes = hybrid_train_inputs(cfg, shape)
+        if multi_pod:
+            # per-group (per-pod) batch: global batch split across G groups
+            b_sds = map_structure(lambda x: _meta((x.shape[0] // 2,) + tuple(x.shape[1:]),
+                                                  x.dtype), b_sds)
+        s_sds, s_axes = hybrid_stale_inputs(model, cfg, b_sds)
+        step = make_hsgd_train_step(model)
+        if multi_pod:
+            G = 2
+            p_sds, p_axes = _lead(p_sds, p_axes, G, "pod_group")
+            s_sds, s_axes = _lead(s_sds, s_axes, G, "pod_group")
+            b_sds, b_axes = _lead(b_sds, b_axes, G, "pod_group")  # already per-group batch
+            entries["train_step"] = (_pod_train_step(step), (p_sds, s_sds, b_sds),
+                                     (p_axes, s_axes, b_axes))
+            entries["exchange"] = (make_exchange_step(model, n_pods=G), (p_sds, b_sds),
+                                   (p_axes, b_axes))
+            entries["global_agg"] = (make_global_agg(), (p_sds,), (p_axes,))
+        else:
+            entries["train_step"] = (step, (p_sds, s_sds, b_sds), (p_axes, s_axes, b_axes))
+            entries["exchange"] = (make_exchange_step(model), (p_sds, b_sds), (p_axes, b_axes))
+            # single-pod global agg: degenerate (one group), still built with
+            # a leading dim of 1
+            g_sds, g_axes = _lead(p_sds, p_axes, 1, None)
+            entries["global_agg"] = (make_global_agg(), (g_sds,), (g_axes,))
+        return Programs(entries)
+
+    # inference shapes: plain architecture
+    p_sds = L.abstract_params(T.model_specs(cfg), dt)
+    p_axes = L.axes_tree(T.model_specs(cfg))
+    b_sds, b_axes = inference_inputs(cfg, shape, force_window)
+    fn = make_prefill_step(cfg) if shape.kind == "prefill" else make_decode_step(cfg, force_window)
+    if multi_pod:
+        # inference scale-out across pods: batch sharded over pod too
+        b_axes = map_axes(lambda a: tuple("pod_batch" if x == "batch" else x for x in a), b_axes)
+    entries["serve_step"] = (fn, (p_sds, b_sds), (p_axes, b_axes))
+    return Programs(entries)
 
 
 # ---------------------------------------------------------------------------

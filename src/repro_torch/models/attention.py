@@ -18,8 +18,10 @@ from collections import namedtuple
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.sharding import constrain, is_dtensor, shard_count, use_weight
 from repro_torch.models import layers as L
 from repro_torch.models.quant import dequantize_rows, is_int8, quantize_rows
 
@@ -91,17 +93,39 @@ def causal_mask_bias(q_pos, k_pos, window: int = 0):
 # ---------------------------------------------------------------------------
 
 
+_WHOLE_HEADS = ("batch", "seq", None, None)
+
+
+def _group_heads(q, KH: int):
+    """q [B, S, H, D] as [B, S, KH, H/KH, D]. A DTensor whose heads are
+    split over ranks that do not divide KH cannot be viewed so: its heads
+    are replicated first (a named redistribution: the reference's XLA
+    reshards by itself). The plain view otherwise."""
+    B, S, H, D = q.shape
+    if KH % shard_count(q, 2):
+        q = constrain(q, _WHOLE_HEADS)
+    return q.reshape(B, S, KH, H // KH, D)
+
+
+def _ungroup_heads(out, KH: int, split: int):
+    """out [B, S, KH, G, D] as [B, S, KH·G, D]. Where ``_group_heads`` made
+    a DTensor's heads whole (``split``, the ranks q's heads were split over,
+    does not divide KH), the gradient arriving here is made whole too
+    before the view's backward regroups it."""
+    B, S, _, _, D = out.shape
+    out = out.reshape(B, S, -1, D)
+    return constrain(out, _WHOLE_HEADS, force=True) if KH % split else out
+
+
 def _sdpa(q, k, v, bias, scale):
     """q:[B,Sq,H,D] k,v:[B,Sk,KH,D] -> [B,Sq,H,D]; bias:[B?,Sq,Sk] additive."""
-    B, Sq, H, D = q.shape
     KH = k.shape[2]
-    G = H // KH
-    qg = q.reshape(B, Sq, KH, G, D)
+    qg = _group_heads(q, KH)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
     scores = scores + (bias[:, None, None] if bias.dim() == 3 else bias)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    return _ungroup_heads(out, KH, shard_count(q, 2)).to(q.dtype)
 
 
 def _blockwise_sdpa(q, k, v, q_pos, k_pos, scale, window: int, kv_block: int = 1024):
@@ -118,14 +142,13 @@ def _blockwise_sdpa(q, k, v, q_pos, k_pos, scale, window: int, kv_block: int = 1
         k = torch.cat([k, k.new_zeros((B, pad) + tuple(k.shape[2:]))], dim=1)
         v = torch.cat([v, v.new_zeros((B, pad) + tuple(v.shape[2:]))], dim=1)
         k_pos = torch.cat([k_pos, k_pos.new_full((B, pad), INT32_MAX)], dim=1)
-    qg = (q * scale).reshape(B, Sq, KH, G, D).float()
+    qg = _group_heads(q * scale, KH).float()
     qp = q_pos[:, None, None, :, None]
     m = torch.full((B, KH, G, Sq), NEG_INF, device=q.device)
     l = torch.zeros((B, KH, G, Sq), device=q.device)
     acc = torch.zeros((B, KH, G, Sq, D), device=q.device)
-    for i in range(nblk):
-        blk = slice(i * kv_block, (i + 1) * kv_block)
-        kc, vc, pc = k[:, blk], v[:, blk], k_pos[:, blk][:, None, None, None, :]
+
+    def step(m, l, acc, kc, vc, pc):
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.float())
         ok = (pc <= qp) & _window_ok(qp, pc, window)
         s = torch.where(ok, s, NEG_INF)
@@ -134,9 +157,19 @@ def _blockwise_sdpa(q, k, v, q_pos, k_pos, scale, window: int, kv_block: int = 1
         corr = torch.exp(m - m_new)
         l = l * corr + torch.sum(p, dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vc.float())
-        m = m_new
+        return m_new, l, acc
+
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        # remat the kv-block body, as the reference does: the backward
+        # recomputes the [.., Sq, kv_block] score slab instead of saving one
+        # fp32 slab per block
+        body = step
+        step = lambda *a: checkpoint(body, *a, use_reentrant=False)
+    for i in range(nblk):
+        blk = slice(i * kv_block, (i + 1) * kv_block)
+        m, l, acc = step(m, l, acc, k[:, blk], v[:, blk], k_pos[:, blk][:, None, None, None, :])
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    return _ungroup_heads(out.permute(0, 3, 1, 2, 4), KH, shard_count(q, 2)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -242,9 +275,9 @@ def gqa_forward(
     ``positions_3d`` [B, S, 3], or over the text ids of ``positions``
     when none are given."""
     hd = cfg.resolved_head_dim
-    q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    q = _project(x, use_weight(params["wq"], ("embed", "heads", "head_dim")))
+    k = _project(x, use_weight(params["wk"], ("embed", "kv_heads", "head_dim")))
+    v = _project(x, use_weight(params["wv"], ("embed", "kv_heads", "head_dim")))
     if cfg.qk_norm:
         q = _head_rms(q, params["q_norm"])
         k = _head_rms(k, params["k_norm"])
@@ -255,6 +288,7 @@ def gqa_forward(
     else:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ("batch", "seq", "heads", None))
     scale = hd ** -0.5
 
     if kv_cache is not None:
@@ -273,16 +307,19 @@ def gqa_forward(
         else:
             out = _sdpa(q, ck, cv, _decode_bias(positions, cpos, window), scale)
     else:
-        if k.shape[1] > BLOCKWISE_THRESHOLD:
+        # a DTensor takes the blockwise route at any length (the same
+        # attention): the full-score einsum's backward breaks a DTensor
+        # view at a pod's batch with grouped KV heads
+        if k.shape[1] > BLOCKWISE_THRESHOLD or is_dtensor(q):
             out = _blockwise_sdpa(q, k, v, positions, positions, scale, window)
         else:
             out = _sdpa(q, k, v, causal_mask_bias(positions, positions, window), scale)
         new_cache = None
 
     B, S = out.shape[:2]
-    wo = params["wo"].to(out.dtype)
+    wo = use_weight(params["wo"], ("heads", "head_dim", "embed")).to(out.dtype)
     out = torch.matmul(out.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]))
-    return out, new_cache
+    return constrain(out, ("batch", "seq", "embed")), new_cache
 
 
 def _head_rms(x, scale, eps=1e-6):
@@ -320,20 +357,20 @@ def mla_forward(params, x, positions, cfg: ModelConfig, window: int = 0,
     kvr, H = cfg.kv_lora_rank, cfg.num_heads
     B, Sq = x.shape[0], x.shape[1]
 
-    qa = torch.matmul(x, params["wq_a"].to(x.dtype))
+    qa = torch.matmul(x, use_weight(params["wq_a"], ("embed", None)).to(x.dtype))
     qa = L.rmsnorm({"scale": params["q_a_norm"]}, qa)
-    q = _project(qa, params["wq_b"])
+    q = _project(qa, use_weight(params["wq_b"], (None, "heads", "head_dim")))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
 
-    kv_a = torch.matmul(x, params["wkv_a"].to(x.dtype))
+    kv_a = torch.matmul(x, use_weight(params["wkv_a"], ("embed", None)).to(x.dtype))
     latent, k_rope_flat = kv_a[..., :kvr], kv_a[..., kvr:]
     latent = L.rmsnorm({"scale": params["kv_a_norm"]}, latent)
     k_rope = L.apply_rope(k_rope_flat[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
 
     scale = (nope + rope_d) ** -0.5
-    wkv_b = params["wkv_b"]
-    wo = params["wo"]
+    wkv_b = use_weight(params["wkv_b"], (None, "heads", "head_dim"))
+    wo = use_weight(params["wo"], ("heads", "head_dim", "embed"))
 
     if kv_cache is not None:
         # the (latent, RoPE key) pair takes the (K, V) slots of the cache
@@ -351,7 +388,8 @@ def mla_forward(params, x, positions, cfg: ModelConfig, window: int = 0,
         s = s.view(B, H, Sq, Sk)
         ok = cpos[:, None, None, :] <= positions[:, None, :, None]
         ok = ok & _window_ok(positions[:, None, :, None], cpos[:, None, None, :], window)
-        s.masked_fill_(~ok, NEG_INF)
+        # in place, but for a DTensor: its in-place ops must keep its layout
+        s = s.masked_fill(~ok, NEG_INF) if is_dtensor(s) else s.masked_fill_(~ok, NEG_INF)
         p = torch.softmax(s, dim=-1)
         del s
         p = p.to(lat_dtype).float().view(B, H * Sq, Sk)
@@ -369,7 +407,7 @@ def mla_forward(params, x, positions, cfg: ModelConfig, window: int = 0,
         out = torch.einsum("bhqs,bshv->bqhv", p, vv.float()).to(x.dtype)
         new_cache = None
     out = torch.matmul(out.reshape(B, Sq, H * vd), wo.to(out.dtype).reshape(H * vd, -1))
-    return out, new_cache
+    return constrain(out, ("batch", "seq", "embed")), new_cache
 
 
 def attention_forward(params, x, positions, cfg: ModelConfig, **kw):

@@ -62,6 +62,20 @@ def init_params(specs, generator: torch.Generator, dtype=torch.float32, device="
     return tree_unflatten(treedef, out)
 
 
+def abstract_params(specs, dtype=torch.float32):
+    """The tree of Specs as meta tensors of ``dtype`` (the reference's
+    ``ShapeDtypeStruct``s)."""
+    leaves, treedef = tree_flatten(specs)
+    return tree_unflatten(treedef, [torch.empty(s.shape, dtype=dtype, device="meta")
+                                    for s in leaves])
+
+
+def axes_tree(specs):
+    """The tree of Specs' logical axes."""
+    leaves, treedef = tree_flatten(specs)
+    return tree_unflatten(treedef, [s.axes for s in leaves])
+
+
 def dense(params, x):
     """``...d, df -> ...f``."""
     return torch.matmul(x, params["w"].to(x.dtype))

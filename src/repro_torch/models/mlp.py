@@ -6,6 +6,7 @@ from typing import Dict
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.sharding import constrain, use_weight
 from repro_torch.models import layers as L
 
 
@@ -33,9 +34,12 @@ def mlp_forward(params, x, cfg: ModelConfig):
         act = L.ACTIVATIONS["gelu"]
 
     if cfg.mlp in ("swiglu", "geglu"):
-        g = torch.matmul(x, params["w_gate"].to(x.dtype))
-        u = torch.matmul(x, params["w_up"].to(x.dtype))
-        h = act(g) * u
+        wg = use_weight(params["w_gate"], ("embed", "mlp"))
+        wu = use_weight(params["w_up"], ("embed", "mlp"))
+        h = act(torch.matmul(x, wg.to(x.dtype))) * torch.matmul(x, wu.to(x.dtype))
     else:
-        h = act(torch.matmul(x, params["w_up"].to(x.dtype)))
-    return torch.matmul(h, params["w_down"].to(x.dtype))
+        wu = use_weight(params["w_up"], ("embed", "mlp"))
+        h = act(torch.matmul(x, wu.to(x.dtype)))
+    h = constrain(h, ("batch", "seq", "mlp"))
+    wd = use_weight(params["w_down"], ("mlp", "embed"))
+    return constrain(torch.matmul(h, wd.to(x.dtype)), ("batch", "seq", "embed"))

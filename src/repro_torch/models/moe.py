@@ -32,6 +32,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.sharding import constrain, use_weight
 from repro_torch.models import layers as L
 from repro_torch.models.mlp import mlp_forward, mlp_specs
 
@@ -66,7 +67,8 @@ def route(params, flat, cfg: ModelConfig):
     fp32 softmax probabilities, the top k of them in descending order (ties
     to the lower expert index, as ``jax.lax.top_k``) and their expert ids;
     the gates renormalized to sum to 1."""
-    logits = torch.matmul(flat.float(), params["router"].float())
+    router = use_weight(params["router"], ("embed", "experts"))
+    logits = torch.matmul(flat.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_token
@@ -104,15 +106,20 @@ def moe_forward(params, x, cfg: ModelConfig):
         dst = torch.where(keep, flat_idx * C + pos, E * C)
         src = flat.repeat_interleave(k, dim=0)
         buf = x.new_zeros((E * C + 1, D)).index_put((dst,), src)[:E * C].view(E, C, D)
+        buf = constrain(buf, ("experts", "expert_tokens", None))
         del src
 
     with record_function(MOE_RANGES[1]):
         act = L.ACTIVATIONS["silu" if cfg.mlp in ("swiglu", "geglu") else "gelu"]
-        g = torch.bmm(buf, params["w_gate"].to(x.dtype))
-        u = torch.bmm(buf, params["w_up"].to(x.dtype))
-        h = act(g) * u
+        wg = use_weight(params["w_gate"], ("experts", "embed", "mlp"))
+        wu = use_weight(params["w_up"], ("experts", "embed", "mlp"))
+        g = torch.bmm(buf, wg.to(x.dtype))
+        u = torch.bmm(buf, wu.to(x.dtype))
+        h = constrain(act(g) * u, ("experts", "expert_tokens", "mlp"))
         del g, u
-        eout = torch.bmm(h, params["w_down"].to(x.dtype)).view(E * C, D)
+        wd = use_weight(params["w_down"], ("experts", "mlp", "embed"))
+        eout = constrain(torch.bmm(h, wd.to(x.dtype)), ("experts", "expert_tokens", None))
+        eout = eout.view(E * C, D)
         del h
 
     with record_function(MOE_RANGES[2]):
@@ -125,4 +132,7 @@ def moe_forward(params, x, cfg: ModelConfig):
 
     if cfg.num_shared_experts:
         out = out + mlp_forward(params["shared"], flat, cfg)
-    return out.reshape(B, S, D), aux_loss
+    # a DTensor whose tokens are split over data and model cannot be viewed
+    # back as [B, S, D] when B alone does not take both: keep the tokens on
+    # the batch axes only (the identity on a plain tensor)
+    return constrain(out, ("batch", None)).reshape(B, S, D), aux_loss

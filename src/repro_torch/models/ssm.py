@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.sharding import constrain, shard_count, use_weight
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.attention import CacheSpec
@@ -120,9 +121,23 @@ def _pad_time(x, pad: int, value: float = 0.0):
 
 
 def _to_chunks(x, nchunk: int, pad: int, chunk: int = CHUNK):
-    """[B, T, ...] -> [nchunk, B, chunk, ...] (pad with zeros)."""
+    """[B, T, ...] -> [nchunk, B, chunk, ...] (pad with zeros). A DTensor
+    split along T is gathered along it first (the view needs T whole; the
+    identity on a plain tensor)."""
+    if shard_count(x, 1) > 1:
+        x = constrain(x, ("batch", "seq") + (None,) * (x.dim() - 2))
     x = _pad_time(x, pad)
     return x.reshape((x.shape[0], nchunk, chunk) + tuple(x.shape[2:])).movedim(1, 0)
+
+
+def _from_chunks(ys, T: int):
+    """A list of nchunk [B, chunk, ...] outputs -> [B, T, ...]. For a
+    DTensor the gradient arriving here is made whole along T (a forced
+    constrain) before the view's backward splits T into chunks again; the
+    identity on a plain tensor."""
+    y = torch.stack(ys, 1)
+    y = y.reshape((y.shape[0], -1) + tuple(y.shape[3:]))
+    return constrain(y, ("batch", "seq") + (None,) * (y.dim() - 2), force=True)[:, :T]
 
 
 def chunked_linear_recurrence(a, b, h0, project=None, aux=None):
@@ -189,11 +204,12 @@ def mamba1_forward(params, x, cfg: ModelConfig, state: Optional[Tuple] = None):
     d_in = cfg.ssm_expand * D
     N = cfg.ssm_state
 
-    proj = torch.matmul(x, params["w_in"].to(x.dtype))
+    w_in = use_weight(params["w_in"], ("embed", "ssm_inner"))
+    proj = torch.matmul(x, w_in.to(x.dtype))
     xz, z = proj[..., :d_in], proj[..., d_in:]
     conv_state, h_read = _state_unpack(state) if state is not None else (None, None)
     xc, new_conv = _causal_conv(xz, params["conv_w"], params["conv_b"], conv_state)
-    xc = F.silu(xc)
+    xc = constrain(F.silu(xc), ("batch", "seq", "ssm_inner"))
 
     bcdt = torch.matmul(xc, params["w_bcdt"].to(x.dtype))
     Bm, Cm, dt_in = bcdt[..., :N], bcdt[..., N: 2 * N], bcdt[..., 2 * N:]
@@ -217,10 +233,11 @@ def mamba1_forward(params, x, cfg: ModelConfig, state: Optional[Tuple] = None):
         bxc = (dtc * xcc)[..., None] * Bc[:, :, None, :]
         hs, h = _chunk_recurrence(ac, bxc, h)
         ys.append(torch.einsum("bkcn,bkn->bkc", hs, Cc))
-    y = torch.stack(ys, 1).reshape(B, nchunk * K, d_in)[:, :T]
+    y = _from_chunks(ys, T)
     y = y + params["d_skip"].float() * xcf
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = torch.matmul(y, params["w_out"].to(x.dtype))
+    w_out = use_weight(params["w_out"], ("ssm_inner", "embed"))
+    out = constrain(torch.matmul(y, w_out.to(x.dtype)), ("batch", "seq", "embed"))
     new_state = _state_pack(state, new_conv, h) if state is not None else None
     return out, new_state
 
@@ -239,7 +256,7 @@ def mamba2_forward(params, x, cfg: ModelConfig, state: Optional[Tuple] = None):
     P = cfg.ssm_headdim
     H = d_in // P
 
-    proj = torch.matmul(x, params["w_in"].to(x.dtype))
+    proj = torch.matmul(x, use_weight(params["w_in"], ("embed", "ssm_inner")).to(x.dtype))
     z = proj[..., :d_in]
     xBC = proj[..., d_in: 2 * d_in + 2 * N]
     dt_in = proj[..., 2 * d_in + 2 * N:]  # [B, T, H]
@@ -266,12 +283,13 @@ def mamba2_forward(params, x, cfg: ModelConfig, state: Optional[Tuple] = None):
         bxc = dtc[..., None, None] * xcc[..., None] * Bc[:, :, None, None, :]
         hs, h = _chunk_recurrence(ac, bxc, h)
         ys.append(torch.einsum("bkhpn,bkn->bkhp", hs, Cc))
-    y = torch.stack(ys, 1).reshape(B, nchunk * K, H, P)[:, :T]
+    y = _from_chunks(ys, T)
     y = y + params["d_skip"].float()[None, None, :, None] * xsf
     y = y.reshape(B, T, d_in)
     y = y * F.silu(z.float())
     y = L.rmsnorm({"scale": params["norm"]}, y.to(x.dtype))
-    out = torch.matmul(y, params["w_out"].to(x.dtype))
+    w_out = use_weight(params["w_out"], ("ssm_inner", "embed"))
+    out = constrain(torch.matmul(y, w_out.to(x.dtype)), ("batch", "seq", "embed"))
     new_state = _state_pack(state, new_conv, h) if state is not None else None
     return out, new_state
 

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.pytree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.common.sharding import constrain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -401,11 +402,12 @@ def forward(cfg: ModelConfig, params, tokens, *, extra_embeds=None, remat: bool 
         x, positions_3d = _vlm_inputs(cfg, params, tokens, extra_embeds)
     else:
         x = L.embed(params["embed"], tokens)
+        if cfg.family != "audio":
+            x = x * _embed_scale(cfg, x.dtype)
+    x = constrain(x, ("batch", "seq", "embed"))
     if cfg.family == "audio":
         x = audio_forward(params, x, extra_embeds, cfg, remat)
         return L.apply_norm(cfg.norm, params["final_norm"], x), torch.zeros((), device=x.device)
-    if cfg.family != "vlm":
-        x = x * _embed_scale(cfg, x.dtype)
     x, aux = backbone_forward(cfg, params, x, remat=remat, force_window=force_window,
                               positions_3d=positions_3d)
     return L.apply_norm(cfg.norm, params["final_norm"], x), aux
@@ -564,8 +566,10 @@ def audio_decode(cfg: ModelConfig, params, x, positions, caches, index, fresh_ca
 
 def logits_from_hidden(cfg: ModelConfig, params, hidden):
     if cfg.tie_embeddings:
-        return L.unembed(params["embed"], hidden)
-    return L.dense(params["head"], hidden)
+        out = L.unembed(params["embed"], hidden)
+    else:
+        out = L.dense(params["head"], hidden)
+    return constrain(out, ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -604,9 +608,11 @@ def chunked_lm_head_loss(cfg: ModelConfig, params, hidden, labels, remat=True):
 
     def body(hc, yc):
         logits = logits_from_hidden(cfg, params, hc).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, torch.clamp_min(yc, 0).long()[..., None])[..., 0]
-        valid = (yc >= 0).float()
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        # kept [B, c, 1]: a DTensor's gather along a sharded vocab axis must be
+        # reduced in the shape it was gathered in
+        ll = torch.gather(logits, -1, torch.clamp_min(yc, 0).long()[..., None])
+        valid = (yc >= 0).float()[..., None]
         return torch.sum((lse - ll) * valid)
 
     body = _remat(body, remat)

@@ -187,16 +187,20 @@ def test_llm_flags_parse(flag):
 
 
 def test_package_imports_no_jax():
-    """Import repro_torch and every submodule in a fresh interpreter: jax
-    and the JAX package stay out of sys.modules."""
+    """Import repro_torch and every submodule in a fresh interpreter: jax,
+    the JAX package and the fake process group's module stay out of
+    sys.modules, and no process group is started."""
     mods = sorted(".".join(p.relative_to(SRC).with_suffix("").parts)
                   for p in (SRC / "repro_torch").rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'repro' or m.startswith('repro.'))\n"
-            "print(len(sys.modules)); assert not bad, bad\n")
+            " or m == 'repro' or m.startswith('repro.')"
+            " or m == 'torch.testing._internal.distributed.fake_pg')\n"
+            "print(len(sys.modules)); assert not bad, bad\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized(), 'an import started a process group'\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -214,7 +218,9 @@ def test_package_imports_no_jax():
             "repro_torch.launch.serve", "repro_torch.launch.steps",
             "repro_torch.models.attention",
             "repro_torch.models.mlp", "repro_torch.models.quant",
-            "repro_torch.models.transformer"} <= set(mods)
+            "repro_torch.models.transformer", "repro_torch.common.sharding",
+            "repro_torch.launch.mesh", "repro_torch.launch.flops",
+            "repro_torch.launch.dryrun"} <= set(mods)
 
 
 def test_no_source_names_jax_or_the_reference():
