@@ -27,7 +27,8 @@ Phases, in order; any failure raises and the script exits nonzero:
   3. the main path: ``repro_torch.launch.train.run_ehealth`` — paper-cnn,
      organamnist, c-hsgd (k=0.25, b=128), M=10, K=64, α=0.25, 2048 samples,
      P=4, Q=2, 10 rounds — with the launch counters zeroed just before and
-     read just after;
+     read just after, under the executor guard
+     (``analysis.compile_guard``): exactly one ``hsgd_round`` built;
   3b. the fixed private path: the main path with --dp-clip 1 --dp-sigma 1
      --secure-agg: 20 DP launches and no other, one round executor, the
      composed ε of 20 releases;
@@ -358,7 +359,25 @@ the fp32 peak, 67 TFLOP/s, beside the card's name and power limit):
      route, the exchange compresses nothing);
   3z. a one-rank NCCL process group and a (1, 1) [data, model] DeviceMesh:
      the main path's ``HSGDRunner.run(mesh=)`` (2 c-hsgd rounds) gives
-     the same losses as the run without a mesh, bit for bit;
+     the same losses as the run without a mesh, bit for bit; so do two
+     chained ``run(rounds=1, mesh=)`` calls, each taking the state the one
+     before returned, and ``AdaptiveHSGDRunner.run(mesh=)`` with DP (C = 1,
+     σ = 1, ε ≤ 25) and secure aggregation against its run without the
+     mesh (8 steps, no probe; one DP compress launch a round);
+  3za. the legacy sort path (``HSGDRunner(fused_compression=False)``:
+     ``torch.topk`` and a separate quantize, leaf by leaf): the main path
+     (phase 3's run) on it and on the fused kernel, each a warm-up round
+     drained, then 3 turns of a run of each in alternating order, each
+     timed to a ``torch.cuda.synchronize()``: the best steps/s of each, the sort run's losses falling, no kernel of the port
+     launched on it, one executor each; ``exchange(fused=False, dp_clip=)``
+     raises; CUDA events (median of 21 launches) time the sort path against
+     the compress kernel at the main path's message (leaf by leaf, against
+     ``compress_pytree`` and the bare kernel) and at [16384, 29568],
+     [8192, 152064] and [1152, 262144] with k = 0.25, b = 128;
+  3zb. the compress kernel with levels=0 (``topk_sparsify_cuda``) at the
+     reference property test's (n, k) and at [2900, 128], k = 32: equal to
+     its plain version, a superset of ``kernels/ref.py::topk_exact_ref``'s
+     support, at most k + 8 survivors a row;
   4m. each program's outputs at gemma3-1b's smoke widths (fp32) on the card
      against the CPU from the same inputs: the loss and the exchange
      message within rtol 1e-4, the updated parameters within 1e-5 of the
@@ -378,6 +397,7 @@ import os
 import re
 import resource
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -389,12 +409,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.analysis import compile_guard  # noqa: E402
 from repro_torch.common.backend import resolve_device  # noqa: E402
 from repro_torch.common.config import get_config  # noqa: E402
 from repro_torch.common.pytree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core import federation as F  # noqa: E402
 from repro_torch.core.baselines import make_runner  # noqa: E402
-from repro_torch.core.compression import compress_rows_ref  # noqa: E402
+from repro_torch.core.compression import compress_message_sort, compress_rows_ref  # noqa: E402
 from repro_torch.core.controller import (  # noqa: E402
     AdaptiveConfig,
     AdaptiveHSGDRunner,
@@ -408,7 +429,9 @@ from repro_torch.core.population import (CoordinatorPreempted, DeviceRegistry,  
 from repro_torch.examples import quickstart, serve_batched, train_100m_hsgd  # noqa: E402
 from repro_torch.kernels import build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels import compress as compress_kernels  # noqa: E402
-from repro_torch.kernels.compress import fused_compress, stack_rows  # noqa: E402
+from repro_torch.kernels import ref as kernel_ref  # noqa: E402
+from repro_torch.kernels.compress import compress_pytree, fused_compress, stack_rows  # noqa: E402
+from repro_torch.kernels.topk_sparsify import topk_sparsify_cuda  # noqa: E402
 from repro_torch.kernels.compress_cases import EDGE_WIDTHS, edge_case_rows, same_values  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
                                                  flash_attention_ref)
@@ -651,6 +674,16 @@ PROGRAM_PARITY = {"train_4k": (32, 2), "prefill_32k": (32, 2), "decode_32k": (32
                   "long_500k": (64, 1)}
 # checkpoints of phase 3g, inside the checkout's ignored build directory
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+# The legacy sort path (phase 3za): the LLM shapes of PERF.md §6 at which it
+# is timed against the compress kernel (qwen2-vl-72b's shared-memory and
+# head groups, gemma3-1b's head), k = 0.25, b = 128; CUDA-event medians of
+# SORT_LAUNCHES launches; steps/s best of SORT_REPS runs.
+SORT_LLM_SHAPES = ((16384, 29568), (8192, 152064), (1152, 262144))
+SORT_LAUNCHES = 21
+SORT_REPS = 3
+# The exact-support property (phase 3zb): the reference test's (n, k) on 8
+# rows, and the main path's width at k = 0.25.
+EXACT_CASES = ((8, 128, 13), (8, 256, 1), (8, 64, 64), (2900, 128, 32))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1029,7 +1062,7 @@ def time_cpu_draw(cfg):
     rss0 = host_rss_bytes()
     t0 = time.perf_counter()
     leaf = L.init_params({"w_in": spec}, torch.Generator().manual_seed(0))["w_in"]
-    dt = time.perf_counter() - t0
+    dt = time.perf_counter() - t0  # reprolint: disable=RP6 — a CPU draw, no CUDA work
     rss1 = host_rss_bytes()
     print(f"[init-cpu] peak host RSS before it {peak0} bytes; one layer's w_in "
           f"{list(spec.shape)}: {leaf.numel()} values drawn on one CPU generator in {dt} s "
@@ -2757,13 +2790,238 @@ def check_one_rank_mesh(device):
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
         plain, = same_start_losses(device)
         meshed, = same_start_losses(device, mesh=mesh)
+        chained = chained_losses(device, mesh)
+        private_plain = same_start_private_adaptive(device)
+        reset_launch_counts()
+        private_mesh = same_start_private_adaptive(device, mesh=mesh)
+        counts = dict(launch_counts)
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
     print(f"[mesh] one-rank NCCL mesh {mesh}: losses {meshed.tolist()}, without the mesh "
           f"{plain.tolist()}")
     check(torch.equal(plain, meshed), "the one-rank mesh changed the main path's losses")
-    return meshed.tolist()
+    print(f"[mesh] two chained run(rounds=1, mesh=) calls: {chained.tolist()}")
+    check(torch.equal(chained, plain), "chained one-round runs on the mesh differ from "
+                                       "run(rounds=2)")
+    (lp, plans_p), (lm, plans_m) = private_plain, private_mesh
+    print(f"[mesh] adaptive with DP (C=1, σ=1) and secure aggregation on the mesh: "
+          f"launches={counts} plans={plans_m} losses={lm.tolist()}; without the mesh "
+          f"plans={plans_p} losses={lp.tolist()}")
+    check(counts.get("fused_compress_dp", 0) == len(plans_m) > 0 and
+          not counts.get("fused_compress"),
+          f"the private adaptive run on the mesh launched {counts}, expected one DP "
+          f"compress a round ({len(plans_m)})")
+    check(plans_m == plans_p and torch.equal(lm, lp),
+          "the private legs on the one-rank mesh differ from the run without it")
+    return {"losses": meshed.tolist(), "chained": chained.tolist(),
+            "private_launches": counts}
+
+
+def chained_losses(device, mesh):
+    """``same_start_losses``' run, as PARITY_ROUNDS chained one-round
+    ``run(rounds=1, mesh=)`` calls, each taking the state the one before
+    returned."""
+    args = parse_args(MAIN_ARGV)
+    gen = torch.Generator().manual_seed(args.seed)
+    model, fed, train, data, w, _ = setup_ehealth(args, device)
+    runner, eff_fed = make_runner(args.algorithm, model, fed, train)
+    init = model.init(gen)
+    parts = torch.stack([F.sample_participants(gen, eff_fed)
+                         for _ in range(PARITY_ROUNDS * eff_fed.lam)])
+    state = init_state(torch.Generator(), model, eff_fed, data,
+                       params=tree_map(lambda t: t.to(device), init))
+    out = []
+    for r in range(PARITY_ROUNDS):
+        state, losses = runner.run(state, data, w, 1, mesh=mesh,
+                                   participants=parts[r * eff_fed.lam:(r + 1) * eff_fed.lam])
+        out.append(losses.cpu())
+    return torch.cat(out)
+
+
+def same_start_private_adaptive(device, mesh=None):
+    """The adaptive run of ``same_start_adaptive`` with the private legs on
+    (DP with C = 1, σ = 1 under an ε budget of 25, secure aggregation), on
+    ``mesh`` when one is given: (losses, the (P, Q, rung, dp_rung) of each
+    round). The DP noise comes from the run's own seeded generator."""
+    args = parse_args(MAIN_ARGV)
+    gen = torch.Generator().manual_seed(args.seed)
+    model, fed, train, data, w, _ = setup_ehealth(args, device)
+    runner, eff_fed = make_runner(args.algorithm, model, fed, train)
+    init = model.init(gen)
+    parts = torch.stack([F.sample_participants(gen, eff_fed)
+                         for _ in range(ADAPTIVE_PARITY_STEPS)])
+    state = init_state(torch.Generator().manual_seed(args.seed), model, eff_fed, data,
+                       params=tree_map(lambda t: t.to(device), init))
+    cfg = AdaptiveConfig(total_steps=ADAPTIVE_PARITY_STEPS, init_probe=False,
+                         max_interval=args.max_interval, eta_max=max(args.lr * 10, 0.05),
+                         ladder=ladder_from(runner.train.compression_k,
+                                            runner.train.quantization_bits),
+                         dp_clip=1.0, dp_sigma=1.0, privacy_budget=25.0, secure_agg=True)
+    res = AdaptiveHSGDRunner(model, fed, runner.train, cfg).run(
+        state, data, w, participants=parts, mesh=mesh)
+    return (torch.from_numpy(res.losses),
+            [(h["P"], h["Q"], h["rung"], h["dp_rung"]) for h in res.history])
+
+
+def event_median_ms(fn, n: int = SORT_LAUNCHES) -> float:
+    """Median of ``n`` launches of ``fn`` timed by CUDA events, each its own
+    pair, after one warm-up call drained."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main_path_steps_per_s(device):
+    """The main path (phase 3's run: MAIN_ARGV, MAIN_ROUNDS rounds) through
+    ``HSGDRunner.run`` on the fused compress kernel and on the legacy sort
+    path: a warm-up round of each drained, then SORT_REPS turns of one run
+    each from the same start, in alternating order, each timed to a
+    ``torch.cuda.synchronize()``. Per path: (best steps/s, the last run's
+    losses, launches of its timed runs, executors built)."""
+    args = parse_args(MAIN_ARGV + ["--device", "cuda", "--rounds", str(MAIN_ROUNDS)])
+    model, fed, train, data, w, _ = setup_ehealth(args, device)
+    runner, eff_fed = make_runner(args.algorithm, model, fed, train)
+    runners = {fused: dataclasses.replace(runner, fused_compression=fused, _round_cache={})
+               for fused in (True, False)}
+    fresh = lambda: init_state(torch.Generator().manual_seed(args.seed), model, eff_fed, data)
+    for r in runners.values():
+        r.run(fresh(), data, w, 1)  # warm-up: builds the bucket's executor
+    torch.cuda.synchronize()
+    best = {fused: math.inf for fused in runners}
+    losses, counts = {}, {fused: {} for fused in runners}
+    for rep in range(SORT_REPS):
+        for fused in ((True, False) if rep % 2 == 0 else (False, True)):
+            state = fresh()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state, losses[fused] = runners[fused].run(state, data, w, MAIN_ROUNDS)
+            torch.cuda.synchronize()
+            best[fused] = min(best[fused], time.perf_counter() - t0)
+            for key, n in launch_counts.items():
+                counts[fused][key] = counts[fused].get(key, 0) + n
+    return {fused: (MAIN_ROUNDS * args.p / best[fused], losses[fused].cpu(), counts[fused],
+                    len(runners[fused]._round_cache)) for fused in runners}
+
+
+def check_sort_path(device, bw, flops):
+    """Phase 3za: the legacy sort path (``torch.topk`` + a separate quantize,
+    leaf by leaf) on the card: the main path trains on it with its losses
+    falling and launches no kernel of the port; its steps/s beside the fused
+    run's; ``exchange(fused=False)`` refuses DP; and the two timed against
+    each other by CUDA events at the main path's message and at the LLM
+    shapes."""
+    args = parse_args(MAIN_ARGV)
+    lam = args.p // args.q
+    runs = {}
+    for fused, (sps, losses, counts, built) in main_path_steps_per_s(device).items():
+        runs["fused" if fused else "sort"] = {"steps_per_s": sps, "launches": counts,
+                                              "executors": built}
+        first, last = float(losses[:4].mean()), float(losses[-4:].mean())
+        tag = "fused" if fused else "sort"
+        print(f"[sort-path] main path, {tag}: best of {SORT_REPS} steps/s={sps} "
+              f"launches={counts} executors={built} first-4 mean {first} last-4 mean {last}")
+        check(all(math.isfinite(float(v)) for v in losses) and last < first,
+              f"{tag} main path: loss did not fall ({first} -> {last})")
+        check(built == 1, f"{tag} main path built {built} executors, expected 1")
+        want = {"fused_compress": SORT_REPS * MAIN_ROUNDS * lam} if fused else {}
+        check(counts == want, f"{tag} main path launches {counts}, expected {want}")
+    print(f"[sort-path] steps/s fused={runs['fused']['steps_per_s']} "
+          f"sort={runs['sort']['steps_per_s']} "
+          f"fused/sort={runs['fused']['steps_per_s'] / runs['sort']['steps_per_s']}")
+
+    model, fed, train, data, _, _ = setup_ehealth(args, device)
+    runner, eff_fed = make_runner(args.algorithm, model, fed, train)
+    state = init_state(torch.Generator().manual_seed(args.seed), model, eff_fed, data)
+    one = torch.ones((), device=device)
+    try:
+        exchange(model, state, data, eff_fed, 0.25, 128, fused=False, dp_clip=one, dp_sigma=one)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("fused" in refused, "exchange(fused=False) took dp_clip")
+    print(f"[sort-path] exchange(fused=False, dp_clip=1) raises: {refused}")
+
+    # the main path's message, as each path compresses it
+    state = exchange(model, state, data, eff_fed)  # uncompressed
+    msg = {"theta0": state.stale["theta0"], "z1": state.stale["z1"], "z2": state.stale["z2"]}
+    mat, k_rows, len_rows, _ = stack_rows(tree_leaves(msg), 0.25)
+    times = {"message": {
+        "shape": list(mat.shape),
+        "sort_ms": event_median_ms(lambda: tree_map(
+            lambda x: compress_message_sort(x, 0.25, 128), msg)),
+        "fused_pytree_ms": event_median_ms(lambda: compress_pytree(msg, 0.25, 128)),
+        "kernel_ms": event_median_ms(lambda: fused_compress(mat, k_rows, 128, len_rows))}}
+    for rows, n in SORT_LLM_SHAPES:
+        g = torch.Generator(device=device).manual_seed(rows + n)
+        x = torch.randn((rows, n), generator=g, device=device)
+        k = max(1, round(0.25 * n))
+        sort_out = compress_message_sort(x, 0.25, 128)
+        kernel_out = fused_compress(x, k, 128)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(sort_out).all() and torch.isfinite(kernel_out).all()),
+              f"sort path or kernel gave non-finite values at [{rows}, {n}]")
+        del sort_out, kernel_out
+        sort_ms = event_median_ms(lambda: compress_message_sort(x, 0.25, 128))
+        kernel_ms = event_median_ms(lambda: fused_compress(x, k, 128))
+        bound, bound_by = compress_bound_ms(x, torch.full((rows,), n), 128, bw, flops)
+        times[f"{rows}x{n}"] = {"shape": [rows, n], "sort_ms": sort_ms, "kernel_ms": kernel_ms,
+                                "bound_ms": bound, "bound_by": bound_by}
+        del x
+        torch.cuda.empty_cache()
+    for key, t in times.items():
+        ratio = t["sort_ms"] / t["kernel_ms"]
+        print(f"[sort-path] {key} {t['shape']}: CUDA-event medians of {SORT_LAUNCHES} "
+              f"launches: sort path (torch.topk + quantize, two calls) {t['sort_ms']} ms, "
+              f"compress kernel {t['kernel_ms']} ms, sort/kernel={ratio} {json.dumps(t)}")
+    return {"runs": runs, "times": times}
+
+
+def check_exact_support(device, bw, flops):
+    """Phase 3zb: the compress kernel with ``levels=0``
+    (``topk_sparsify_cuda``) keeps a superset of the exact top-k support
+    (``kernels/ref.py::topk_exact_ref``, a sort), at most k + 8 survivors a
+    row, and equals its plain version bit for bit. These are comparison
+    launches. At [2900, 128] it is also timed (CUDA graph replays) beside
+    its plain version, its bound and ``torch.topk``'s exact top-k."""
+    out = {}
+    for rows, n, k in EXACT_CASES:
+        g = torch.Generator(device=device).manual_seed(rows * n + k)
+        x = torch.randn((rows, n), generator=g, device=device)
+        got = topk_sparsify_cuda(x, k)
+        plain = kernel_ref.topk_sparsify_ref(x, k)
+        exact = kernel_ref.topk_exact_ref(x, k) != 0
+        torch.cuda.synchronize()
+        kept = got != 0
+        check(torch.equal(got, plain), f"[{rows}, {n}] k={k}: kernel differs from plain")
+        check(not bool((exact & ~kept).any()), f"[{rows}, {n}] k={k}: an exact top-k entry "
+                                               f"was dropped")
+        most = int(kept.sum(dim=1).max())
+        check(most <= k + 8, f"[{rows}, {n}] k={k}: {most} survivors in a row (> k + 8)")
+        out[f"{rows}x{n}:k={k}"] = {"max_survivors": most,
+                                    "min_survivors": int(kept.sum(dim=1).min())}
+    # the last case is the main path's width: time it, with per-row k and
+    # lengths already on the card (a CUDA graph captures no host copy)
+    k_rows = torch.full((rows,), k, dtype=torch.int32, device=device)
+    len_rows = torch.full((rows,), n, dtype=torch.int32, device=device)
+    bound, bound_by = compress_bound_ms(x, len_rows, 0, bw, flops)
+    timed = {"shape": [rows, n], "k": k,
+             "ms": device_ms(lambda: topk_sparsify_cuda(x, k_rows, row_len=len_rows)),
+             "plain_ms": device_ms(lambda: kernel_ref.topk_sparsify_ref(x, k_rows)),
+             "exact_topk_ms": device_ms(lambda: kernel_ref.topk_exact_ref(x, k)),
+             "bound_ms": bound, "bound_by": bound_by}
+    out["timed"] = timed
+    print(f"[exact-support] kernel keeps the exact top-k support at {json.dumps(out)}")
+    return out
 
 
 def main() -> int:
@@ -2830,12 +3088,13 @@ def main() -> int:
     # -- phase 3: the main path -------------------------------------------
     args = parse_args(MAIN_ARGV + ["--device", "cuda", "--rounds", str(MAIN_ROUNDS)])
     reset_launch_counts()
-    metrics, losses = run_ehealth(args)
+    with compile_guard(track=r"hsgd_", exact={r"hsgd_round": 1}) as guard:
+        metrics, losses = run_ehealth(args)  # one executor for its one bucket
     torch.cuda.synchronize()
     counts = dict(launch_counts)
     lam = args.p // args.q
     print(f"[main] launches={counts} steps/s={metrics['steps'] / metrics['wall_s']} "
-          f"metrics={json.dumps(metrics)}")
+          f"executors built={dict(guard.by_name)} metrics={json.dumps(metrics)}")
     check(counts.get("fused_compress", 0) == MAIN_ROUNDS * lam,
           f"fused_compress launched {counts.get('fused_compress', 0)} times, "
           f"expected rounds x Λ = {MAIN_ROUNDS * lam}")
@@ -3001,7 +3260,13 @@ def main() -> int:
     # -- phases 3y, 3z: scale-out, the program set and the one-rank mesh ----
     programs = check_programs(device)
     print(f"[programs-summary] {json.dumps(programs)}")
-    check_one_rank_mesh(device)
+    mesh_summary = check_one_rank_mesh(device)
+    print(f"[mesh-summary] {json.dumps(mesh_summary)}")
+
+    # -- phases 3za, 3zb: the legacy sort path, the exact-support property ----
+    sort_summary = check_sort_path(device, bw, flops)
+    print(f"[sort-path-summary] {json.dumps(sort_summary)}")
+    exact_summary = check_exact_support(device, bw, flops)
 
     # -- phase 4: the card against the CPU ---------------------------------
     on_cpu, on_card = same_start_losses(torch.device("cpu"), device)
@@ -3176,12 +3441,16 @@ def main() -> int:
         "bound_ms": main_cmp["bound_ms"],
         "bound_by": main_cmp["bound_by"],
         "library_ms": None,
+        # the pre-fusion yardstick: torch.topk + quantize, two calls (phase 3za)
+        "sort_path": sort_summary["times"],
+        "exact_support": exact_summary,
     }, {
         "name": "fused_compress_dp",
         "route": "cuda",
         "source": "src/repro_torch/csrc/compress.cu",
         "replaces": "src/repro/kernels/compress.py:103",
-        "launches": counts_dp["fused_compress_dp"],
+        "launches": counts_dp["fused_compress_dp"]
+        + mesh_summary["private_launches"]["fused_compress_dp"],
         "max_abs_err": max_err_dp,
         "ms": main_dp["ms"],
         "plain_ms": main_dp["plain_ms"],

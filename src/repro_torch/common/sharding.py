@@ -239,14 +239,27 @@ def constrain(x, axes, rules=None, force: bool = False):
     mesh axes are filtered per entry, non-divisible dims are replicated, and
     a rank mismatch is a no-op. The identity on a plain tensor. ``force``
     redistributes even to the layout ``x`` has, so that the gradient takes
-    that layout too (``redistribute``'s backward)."""
+    that layout too (``redistribute``'s backward).
+
+    The redistributed shard is made contiguous: an all-to-all that a process
+    group runs as an all-gather and a chunk (gloo's, the dry run's fake
+    group) leaves each shard a strided view of a padded buffer, which a
+    later matmul's flattening view cannot read (whisper-medium's MLP down
+    projection at published widths)."""
     if not is_dtensor(x) or len(axes) != x.dim():
         return x
     spec = _entries(x.shape, axes, x.device_mesh, rules or DEFAULT_RULES)
     want = placements(spec, x.device_mesh)
     if tuple(x.placements) == want and not force:
         return x
-    return x.redistribute(x.device_mesh, want)
+    y = x.redistribute(x.device_mesh, want)
+    local = y.to_local()
+    if local.is_contiguous():
+        return y
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local.contiguous(), y.device_mesh, y.placements,
+                              shape=y.shape, stride=y.stride())
 
 
 def shard_count(x, dim: int) -> int:

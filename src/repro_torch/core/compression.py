@@ -14,7 +14,8 @@ sequence, so on the card the two agree bit for bit.
 
 Top-k is a fixed 16-step bisection on the magnitude threshold against the
 row max (``count >= k`` keeps ≥ k survivors: the exact top-k support, plus
-ties).
+ties). The legacy sort path (``topk_sparsify_sort``, ``compress_message_sort``)
+is the pre-fusion baseline: ``torch.topk`` and a separate quantize.
 
 The optional DP stage (``dp_noise`` given) clips each row to L2 norm
 ``dp_clip`` and adds ``dp_sigma * dp_clip * dp_noise`` before the top-k, as
@@ -149,6 +150,25 @@ def topk_sparsify(x: torch.Tensor, k_frac: float) -> torch.Tensor:
     return compress_rows_ref(x.reshape(-1, n), k, levels=0).reshape(x.shape)
 
 
+def topk_exact_ref(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact top-k along the last axis by a sort: ``torch.topk`` on |x|,
+    threshold at the k-th largest magnitude, keep every entry ``>=`` it (so
+    ties at the threshold all survive). The exact-support target of the
+    kernel's threshold refinement (``kernels/ref.py``)."""
+    mag = x.abs()
+    thresh = torch.topk(mag, k, dim=-1).values[..., -1:]
+    return torch.where(mag >= thresh, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def topk_sparsify_sort(x: torch.Tensor, k_frac: float) -> torch.Tensor:
+    """The pre-fusion baseline: exact top-k of ``max(1, round(k_frac * n))``
+    entries a row by a sort (``topk_exact_ref``). k_frac >= 1 is a no-op."""
+    if k_frac >= 1.0:
+        return x
+    n = x.shape[-1]
+    return topk_exact_ref(x, max(1, int(round(k_frac * n))))
+
+
 def quantize(x: torch.Tensor, levels: int) -> torch.Tensor:
     """Uniform b-level quantize/dequantize per row (last axis), on a grid
     anchored at zero, so already-sparsified rows stay sparse."""
@@ -171,6 +191,16 @@ def compress_message(x: torch.Tensor, k_frac: float, levels: int = 0) -> torch.T
     n = x.shape[-1]
     k = n if not (0.0 < k_frac < 1.0) else max(1, int(round(k_frac * n)))
     return compress_rows(x.reshape(-1, n), k, levels).reshape(x.shape)
+
+
+def compress_message_sort(x: torch.Tensor, k_frac: float, levels: int = 0) -> torch.Tensor:
+    """The pre-fusion path, two library calls and no kernel of the port:
+    the sort's top-k (``topk_sparsify_sort``), then a separate ``quantize``.
+    Kept as the baseline the fused kernel is measured against."""
+    y = topk_sparsify_sort(x, k_frac) if 0.0 < k_frac < 1.0 else x
+    if levels and levels > 1:
+        y = quantize(y, levels)
+    return y
 
 
 # (k_frac, levels) rungs ordered loosest -> tightest wire size; rung 0 is the

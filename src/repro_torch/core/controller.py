@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.common.buckets import pow2_floor as _pow2_floor
 from repro_torch.common.config import FederationConfig, TrainConfig
-from repro_torch.common.pytree import tree_map, tree_size
+from repro_torch.common.pytree import tree_leaves, tree_map, tree_size
 from repro_torch.core import comm_model as CM
 from repro_torch.core import federation as F
 from repro_torch.core.adaptive import (
@@ -452,16 +452,18 @@ class ControllerCore:
 def hsgd_sizes_of(state: HSGDState, fed: FederationConfig):
     """sizes_of(k, levels) -> per-group MessageSizes for the governor, with
     z1/z2 element counts read off the live exchange buffers (per group =
-    total / M). Shared by the adaptive runner and the population runner."""
-    M = fed.num_groups
+    total / groups held). Shared by the adaptive runner and the population
+    runner."""
     meta = lambda x, lead: torch.empty(x.shape[lead:], dtype=x.dtype, device="meta")
     params_shapes = {
         "theta0": tree_map(lambda x: meta(x, 1), state.theta0),
         "theta1": tree_map(lambda x: meta(x, 1), state.theta1),
         "theta2": tree_map(lambda x: meta(x, 2), state.theta2),
     }
-    z1_el = tree_size(state.stale["z1"]) // M
-    z2_el = tree_size(state.stale["z2"]) // M
+    # per group: a state a group-sharded run returned holds M/n of them
+    groups = tree_leaves(state.theta0)[0].shape[0]
+    z1_el = tree_size(state.stale["z1"]) // groups
+    z2_el = tree_size(state.stale["z2"]) // groups
 
     def sizes_of(k_frac: float, levels: int):
         return CM.message_sizes(params_shapes, z1_el, z2_el,
@@ -480,10 +482,12 @@ class AdaptiveHSGDRunner:
         train: TrainConfig,
         cfg: Optional[AdaptiveConfig] = None,
         do_global_agg: bool = True,
+        fused_compression: bool = True,
     ):
         self.model, self.fed, self.train = model, fed, train
         self.cfg = cfg or AdaptiveConfig()
-        self.runner = HSGDRunner(model, fed, train, do_global_agg=do_global_agg)
+        self.runner = HSGDRunner(model, fed, train, do_global_agg=do_global_agg,
+                                 fused_compression=fused_compression)
 
     # -- comm-model plumbing -------------------------------------------------
 
@@ -510,13 +514,17 @@ class AdaptiveHSGDRunner:
 
         ``mesh`` shards the group axis as ``HSGDRunner.run(mesh=)`` does,
         after the probe (which reads the whole data and the global model on
-        every process); the private legs are not sharded and raise.
+        every process). The private legs run sharded too, with the meshless
+        values: the DP noise of each exchange is the whole message's (drawn
+        from the same generator, or the whole injected matrix) and each
+        process keeps its groups' rows; the secure-aggregation masks are
+        drawn for this process's groups only, under their global index.
         """
         cfg = self.cfg
         device = data["x1"].device
         if cfg.init_probe:
             gen = probe_generator if probe_generator is not None else torch.Generator().manual_seed(0)
-            probe = estimate_rho_delta(self.model, global_model(state, group_weights),
+            probe = estimate_rho_delta(self.model, global_model(state, group_weights, mesh),
                                        data, gen, batch=cfg.probe_batch)
         else:
             probe = None  # NEUTRAL_PROBE: first plan degenerates to P = Q = 1
@@ -530,9 +538,6 @@ class AdaptiveHSGDRunner:
             if dp_noise is None:
                 kwargs["dp_generator"] = dp_noise_generator(state.generator.initial_seed(), device)
         state, data, group_weights, axis = place_on_mesh(state, data, group_weights, mesh)
-        if axis is not None and (dp or cfg.secure_agg):
-            raise ValueError("the private legs (DP noise, secure-aggregation masks) draw "
-                             "whole-M matrices and do not run group-sharded")
         with F.group_axis(axis):
             if participants is not None:
                 participants = torch.stack([F.local_rows(p) for p in participants])

@@ -73,12 +73,28 @@ def mesh_group_axis(mesh, num_groups: int, rules=None) -> Optional[GroupAxis]:
     return GroupAxis(sub.get_group(), sub.get_local_rank(), size)
 
 
-def local_rows(x: torch.Tensor) -> torch.Tensor:
+def active_group_axis() -> Optional[GroupAxis]:
+    """The ``GroupAxis`` the federation's functions run over (None outside
+    ``group_axis``)."""
+    return _GROUP_AXIS
+
+
+def local_rows(x: torch.Tensor, M: Optional[int] = None) -> torch.Tensor:
     """This process's rows of a tensor whose leading axis is the whole M
-    (all of them outside ``group_axis``)."""
+    (all of them outside ``group_axis``).
+
+    With ``M`` given, a tensor that already holds this process's M/n rows
+    (a state a group-sharded run returned) is returned as it is, and any
+    other leading size raises."""
     if _GROUP_AXIS is None:
         return x
-    m = x.shape[0] // _GROUP_AXIS.size
+    size = _GROUP_AXIS.size
+    if M is not None and x.shape[0] != M:
+        if x.shape[0] != M // size:
+            raise ValueError(f"a leading axis of {x.shape[0]} is neither M = {M} "
+                             f"nor M/n = {M // size}")
+        return x
+    m = x.shape[0] // size
     return x[_GROUP_AXIS.rank * m:(_GROUP_AXIS.rank + 1) * m]
 
 
@@ -163,9 +179,14 @@ def secure_agg_masks(template, seed: int, round_idx: int, alive=None):
     +p and slot j carries -p, so the ring sum over the alive slots cancels
     exactly. ``alive`` [M, A] marks the surviving slots; dead slots get (and
     owe) no masks. Bit-identical to the reference's masks.
+
+    Under ``group_axis`` the template (and ``alive``) hold this process's
+    M/n groups, and their masks are drawn under their global index m: the
+    meshless masks' rows, at 1/n of the host's draws.
     """
     leaves, treedef = tree_flatten(template)
     M, A = leaves[0].shape[:2]
+    first = 0 if _GROUP_AXIS is None else _GROUP_AXIS.rank * M
     if alive is None:
         alive_np = np.ones((M, A), bool)
     else:
@@ -176,7 +197,8 @@ def secure_agg_masks(template, seed: int, round_idx: int, alive=None):
             for j in range(i + 1, A):
                 if not (alive_np[m, i] and alive_np[m, j]):
                     continue
-                rng = np.random.default_rng([seed, SECURE_AGG_STREAM, round_idx, m, i, j])
+                rng = np.random.default_rng(
+                    [seed, SECURE_AGG_STREAM, round_idx, first + m, i, j])
                 for li, leaf in enumerate(leaves):
                     p = rng.integers(-(2**31), 2**31, size=tuple(leaf.shape[2:]), dtype=np.int64)
                     nets[li][m, i] += p

@@ -36,8 +36,10 @@ import torch
 from torch.func import grad, grad_and_value, vmap
 
 from repro_torch.common.config import FederationConfig, TrainConfig
+from repro_torch.common.executors import built
 from repro_torch.common.pytree import tree_dot, tree_leaves, tree_map, tree_norm, tree_sub
 from repro_torch.core import federation as F
+from repro_torch.core.compression import compress_message_sort
 from repro_torch.kernels.compress import compress_pytree
 from repro_torch.models.split_model import HybridModel
 from repro_torch.optim import halving_schedule
@@ -315,6 +317,7 @@ def exchange(
     fed: FederationConfig,
     compression_k: float = 0.0,
     quant_levels: int = 0,
+    fused: bool = True,
     idx: Optional[torch.Tensor] = None,
     pmask: Optional[torch.Tensor] = None,
     trust: Optional[torch.Tensor] = None,
@@ -330,7 +333,11 @@ def exchange(
 
     With compression on, the whole exchange message (θ0 snapshot tree + ζ1
     + ζ2) is compressed in ONE fused top-k+quantize row-matrix call: the
-    CUDA kernel on the card, its plain version on the CPU.
+    CUDA kernel on the card, its plain version on the CPU. ``fused=False``
+    takes the pre-fusion path instead, leaf by leaf: ``torch.topk``'s exact
+    top-k, then a separate quantize (``compress_message_sort``), kept as the
+    baseline the fused kernel is measured against. It has no DP stage and
+    raises when ``dp_clip`` is given.
 
     ``idx`` ([M, A] data-row indices) pins the participants instead of
     drawing them from the state's generator. The cohort path (see
@@ -349,10 +356,15 @@ def exchange(
     the fused per-row clip + Gaussian-noise stage, with the noise rows drawn
     from ``dp_generator`` or handed in as ``dp_noise``; ``agg_masks`` (a
     round's int32 tree from ``F.secure_agg_masks``) routes eq. (1) through
-    the secure-aggregation ring, where the masks cancel exactly.
+    the secure-aggregation ring, where the masks cancel exactly. Under a
+    group axis the DP noise is the whole message's, and each process keeps
+    its groups' rows (``compress_pytree(shard=)``).
     """
     device = data["x1"].device
     dp = dp_clip is not None
+    if dp and not fused:
+        raise ValueError("DP is fused into the batched compression kernel; the legacy "
+                         "sort path does not support dp_clip/dp_sigma")
     if trust is not None and pmask is not None:  # eq (1) under screening
         theta2_group = F.robust_local_aggregate(
             state.theta2, pmask, trust, method=fed.robust_agg, trim_frac=fed.trim_frac,
@@ -374,14 +386,20 @@ def exchange(
     stale_theta0 = state.theta0
 
     if compression_k or quant_levels or dp:
-        dp_kw = {}
-        if dp:
-            if dp_noise is None and dp_generator is None:
-                raise ValueError("the DP exchange needs dp_noise or a dp_generator")
-            dp_kw = dict(dp_clip=dp_clip, dp_sigma=dp_sigma, dp_noise=dp_noise,
-                         dp_generator=dp_generator)
-        msg = compress_pytree({"theta0": stale_theta0, "z1": z1, "z2": z2},
-                              compression_k or 1.0, quant_levels, **dp_kw)
+        msg = {"theta0": stale_theta0, "z1": z1, "z2": z2}
+        if not fused:
+            msg = tree_map(lambda x: compress_message_sort(x, compression_k or 1.0, quant_levels),
+                           msg)
+        else:
+            dp_kw = {}
+            if dp:
+                if dp_noise is None and dp_generator is None:
+                    raise ValueError("the DP exchange needs dp_noise or a dp_generator")
+                axis = F.active_group_axis()
+                dp_kw = dict(dp_clip=dp_clip, dp_sigma=dp_sigma, dp_noise=dp_noise,
+                             dp_generator=dp_generator,
+                             shard=None if axis is None else (axis.rank, axis.size))
+            msg = compress_pytree(msg, compression_k or 1.0, quant_levels, **dp_kw)
         stale_theta0, z1, z2 = msg["theta0"], msg["z1"], msg["z2"]
 
     if msg_fault is not None:  # corruption hits the compressed uplink payload
@@ -416,13 +434,26 @@ def global_aggregation(state: HSGDState, fed: FederationConfig, group_weights) -
     )
 
 
-def global_model(state: HSGDState, group_weights) -> Dict[str, Any]:
-    """The observable global model θ̃ (eq. (2))."""
-    return {
-        "theta0": F.global_aggregate(state.theta0, group_weights),
-        "theta1": F.global_aggregate(state.theta1, group_weights),
-        "theta2": F.global_aggregate(F.local_aggregate(state.theta2), group_weights),
-    }
+def global_model(state: HSGDState, group_weights, mesh=None) -> Dict[str, Any]:
+    """The observable global model θ̃ (eq. (2)).
+
+    With the ``mesh`` a group-sharded run took, eq. (2)'s weighted sum is
+    all-reduced over its group axis, so every process returns the same
+    global model; the state may hold all M groups or this process's M/n (a
+    sharded run's returned state)."""
+    M = len(group_weights)
+    with F.group_axis(None if mesh is None else F.mesh_group_axis(mesh, M)):
+        return {
+            "theta0": F.global_aggregate(_group_rows(state.theta0, M), group_weights),
+            "theta1": F.global_aggregate(_group_rows(state.theta1, M), group_weights),
+            "theta2": F.global_aggregate(F.local_aggregate(_group_rows(state.theta2, M)),
+                                         group_weights),
+        }
+
+
+def _group_rows(tree, M: int):
+    """This process's groups of every [M, ...] leaf (``F.local_rows``)."""
+    return tree_map(lambda x: F.local_rows(x, M), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -457,12 +488,15 @@ def place_on_mesh(state: HSGDState, data, group_weights, mesh):
     mesh whose horizontal dimensions hold more than one process and divide
     M), every [M, ...] leaf of the state and the data is cut to this
     process's groups, and the [M] weights stay whole; otherwise all are
-    returned as they are, with axis None."""
-    axis = None if mesh is None else F.mesh_group_axis(mesh, len(group_weights))
+    returned as they are, with axis None. A leaf that already holds this
+    process's M/n groups (a state a sharded run returned) stays as it is,
+    as ``jax.device_put`` leaves an array already placed."""
+    M = len(group_weights)
+    axis = None if mesh is None else F.mesh_group_axis(mesh, M)
     if axis is None:
         return state, data, group_weights, None
     with F.group_axis(axis):
-        rows = lambda tree: tree_map(F.local_rows, tree)
+        rows = lambda tree: _group_rows(tree, M)
         state = state._replace(theta0=rows(state.theta0), theta1=rows(state.theta1),
                                theta2=rows(state.theta2), stale=rows(state.stale),
                                batch=rows(state.batch))
@@ -498,6 +532,7 @@ class HSGDRunner:
     fed: FederationConfig
     train: TrainConfig
     do_global_agg: bool = True  # False reproduces TDCD's missing phase
+    fused_compression: bool = True  # False keeps the pre-fusion sort path
     # bucket key -> round executor
     _round_cache: Dict = field(default_factory=dict, compare=False, repr=False)
 
@@ -505,9 +540,10 @@ class HSGDRunner:
             participants: Optional[torch.Tensor] = None, mesh=None):
         """Execute ``rounds`` global rounds; returns (state, per-step losses).
 
-        Each round: global aggregation, then Λ × (exchange, Q SGD steps).
-        ``participants`` ([rounds·Λ, M, A]) pins every exchange's A_m, as
-        ``exchange(idx=)`` does. The caller's ``state`` is consumed — this
+        Each round: global aggregation, then Λ × (exchange, Q SGD steps),
+        through the (P, Q, k, b) bucket's executor (``round_fn``), built once
+        a runner. ``participants`` ([rounds·Λ, M, A]) pins every exchange's
+        A_m, as ``exchange(idx=)`` does. The caller's ``state`` is consumed — this
         may update it in place, as the reference donates it — so rebind the
         returned state. Losses stay on the state's device, one per step.
 
@@ -515,8 +551,10 @@ class HSGDRunner:
         dimensions divide M shards the group axis over them
         (``place_on_mesh``): each process runs its M/n groups, the
         cross-group reductions of eq. (2) and the loss means are collectives,
-        and the returned state holds this process's groups. The losses are
-        every process's. Any other mesh leaves the run as it is.
+        and the returned state holds this process's groups: a second
+        ``run(mesh=)`` takes it as it is, and ``global_model(state, w, mesh)``
+        reads the global model from it. The losses are every process's. Any
+        other mesh leaves the run as it is.
         """
         fed, train = self.fed, self.train
         if participants is not None and participants.shape[0] != rounds * fed.lam:
@@ -524,6 +562,7 @@ class HSGDRunner:
                              f"{rounds} rounds need rounds·Λ = {rounds * fed.lam}")
         state, data, group_weights, axis = place_on_mesh(state, data, group_weights, mesh)
         lr_fn = halving_schedule(train.learning_rate, train.lr_halve_every)
+        fn = self.round_fn(fed.local_interval * fed.lam, fed.local_interval, collect_stats=False)
         losses = []
         with F.group_axis(axis):
             if participants is not None:
@@ -531,9 +570,7 @@ class HSGDRunner:
             for r in range(rounds):
                 part = (None if participants is None
                         else participants[r * fed.lam:(r + 1) * fed.lam])
-                state, loss = self._round_impl(state, data, group_weights, lr_fn,
-                                               fed.local_interval, fed.lam, train.compression_k,
-                                               train.quantization_bits, False, participants=part)
+                state, loss = fn(state, data, group_weights, lr_fn, participants=part)
                 losses.append(loss)
         out = torch.cat(losses) if losses else torch.zeros(0, device=data["x1"].device)
         return state, out
@@ -555,7 +592,7 @@ class HSGDRunner:
         stats = {k: [] for k in ("loss", "gnorm2", "delta2", "rho", "rho_ok")}
         for i in range(lam):
             state = exchange(
-                model, state, data, fed, compression_k, quant_levels,
+                model, state, data, fed, compression_k, quant_levels, self.fused_compression,
                 idx=None if participants is None else participants[i],
                 dp_clip=dp_clip, dp_sigma=dp_sigma,
                 dp_noise=None if dp_noise is None else dp_noise[i],
@@ -578,11 +615,24 @@ class HSGDRunner:
                 stats["gnorm2"].append(aux["gnorm2"])
                 stats["delta2"].append(aux["delta2"])
                 stats["rho"].append(rho)
-                stats["rho_ok"].append(torch.full((), float(prev_ok), device=loss.device))
+                stats["rho_ok"].append(torch.full((), 1.0 if prev_ok else 0.0,
+                                                  device=loss.device))
                 prev_g, prev_ok = aux["gbar"], True
         if not collect:
             return state, torch.stack(stats["loss"])
         return state, {k: torch.stack(v) for k, v in stats.items()}
+
+    def _cached(self, key, name: str, build: Callable[[], Callable]) -> Callable:
+        """The executor of bucket ``key``, built by ``build`` on a miss and
+        reported as ``name`` on the executor log. The sort path's buckets
+        carry one more word, so the two paths never share an executor."""
+        if not self.fused_compression:
+            key = key + ("sort",)
+        fn = self._round_cache.get(key)
+        if fn is None:
+            fn = self._round_cache[key] = build()
+            built(name, key)
+        return fn
 
     def _bucket(self, P: int, Q: int, compression_k: Optional[float],
                 quant_levels: Optional[int], cohort_size: int = 1) -> Tuple[float, int]:
@@ -621,9 +671,9 @@ class HSGDRunner:
         key = (P, Q, k, b, collect_stats)
         if dp or secure_agg:
             key = key + (dp, secure_agg)
-        fn = self._round_cache.get(key)
-        if fn is None:
-            lam = P // Q
+        lam = P // Q
+
+        def build():
 
             def hsgd_round(state, data, group_weights, lr, dp_clip=None, dp_sigma=None,
                            agg_masks=None, participants=None, dp_noise=None, dp_generator=None):
@@ -642,8 +692,10 @@ class HSGDRunner:
                     dp_generator=dp_generator if dp else None,
                     agg_masks=agg_masks if secure_agg else None)
 
-            fn = self._round_cache[key] = hsgd_round
-        return fn
+            return hsgd_round
+
+        return self._cached(key, "hsgd_private_round" if dp or secure_agg else "hsgd_round",
+                            build)
 
     def cohort_round_fn(self, P: int, Q: int, cohort_size: int,
                         compression_k: Optional[float] = None,
@@ -669,10 +721,9 @@ class HSGDRunner:
         """
         k, b = self._bucket(P, Q, compression_k, quant_levels, cohort_size)
         key = (P, Q, cohort_size, k, b, collect_stats)
-        fn = self._round_cache.get(key)
-        if fn is None:
-            lam = P // Q
+        lam = P // Q
 
+        def build():
             def hsgd_cohort_round(state, data, group_weights, lr, participants, pmask):
                 idx, pmask, w = _cohort_operands(data, participants, pmask, group_weights)
                 state, out = self._round_impl(
@@ -682,8 +733,9 @@ class HSGDRunner:
                 state = state._replace(theta2=F.broadcast_to_devices(theta2_group, cohort_size))
                 return state, out
 
-            fn = self._round_cache[key] = hsgd_cohort_round
-        return fn
+            return hsgd_cohort_round
+
+        return self._cached(key, "hsgd_cohort_round", build)
 
     def _guarded_round_impl(self, state, data, group_weights, lr: Callable[[int], float],
                             Q: int, lam: int, k: float, b: int, idx, pmask,
@@ -699,7 +751,8 @@ class HSGDRunner:
         trust = torch.ones_like(pmask)
         losses = []
         for _ in range(lam):
-            state = exchange(model, state, data, fed, k, b, idx=idx, pmask=pmask,
+            state = exchange(model, state, data, fed, k, b, self.fused_compression,
+                             idx=idx, pmask=pmask,
                              trust=trust if screen else None, msg_fault=msg_fault,
                              screen=screen)
             for _ in range(Q):
@@ -740,10 +793,9 @@ class HSGDRunner:
         """
         k, b = self._bucket(P, Q, compression_k, quant_levels, cohort_size)
         key = (P, Q, cohort_size, k, b, "robust" if robust else "faulty")
-        fn = self._round_cache.get(key)
-        if fn is None:
-            lam = P // Q
+        lam = P // Q
 
+        def build():
             def hsgd_fault_round(state, data, group_weights, lr, participants, pmask,
                                  grad_fault, msg_fault):
                 idx, pmask, w = _cohort_operands(data, participants, pmask, group_weights)
@@ -753,8 +805,9 @@ class HSGDRunner:
                     torch.as_tensor(grad_fault, dtype=torch.float32, device=dev),
                     torch.as_tensor(msg_fault, dtype=torch.float32, device=dev), screen=robust)
 
-            fn = self._round_cache[key] = hsgd_fault_round
-        return fn
+            return hsgd_fault_round
+
+        return self._cached(key, "hsgd_robust_round" if robust else "hsgd_faulty_round", build)
 
     def run_private(self, state: HSGDState, data, group_weights, rounds: int,
                     seed: int = 0, dp_clip: float = 0.0, dp_sigma: float = 0.0,

@@ -30,7 +30,7 @@ group, or handed in.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -193,8 +193,24 @@ def row_groups(leaves):
     return (by_width(narrow) if split else [narrow]) + wide
 
 
+def _shard_rows(noise: torch.Tensor, counts, shard) -> torch.Tensor:
+    """The rows of a whole group's noise matrix that the (rank, n)-th slice
+    of each leaf holds: leaf i's block of n·counts[i] rows, stacked leaf by
+    leaf, keeps its rank-th run of counts[i] rows."""
+    rank, n = shard
+    parts, off = [], 0
+    for c in counts:
+        parts.append(noise[off + rank * c:off + (rank + 1) * c])
+        off += n * c
+    if off != noise.shape[0]:
+        raise ValueError(f"dp_noise holds {noise.shape[0]} rows; the whole message's "
+                         f"row group holds {off}")
+    return torch.cat(parts)
+
+
 def compress_pytree(tree, k_frac: float, levels: int = 0, dp_clip=None, dp_sigma=None,
-                    dp_noise=None, dp_generator: Optional[torch.Generator] = None):
+                    dp_noise=None, dp_generator: Optional[torch.Generator] = None,
+                    shard: Optional[Tuple[int, int]] = None):
     """Compress every leaf of a message tree, one launch per row group.
 
     The leaves are grouped by ``row_groups`` and each group stacked by
@@ -208,6 +224,12 @@ def compress_pytree(tree, k_frac: float, levels: int = 0, dp_clip=None, dp_sigma
     noise is drawn with ``torch.randn``, group by group), every row goes
     through the fused clip + noise stage with clip ``dp_clip`` and
     multiplier ``dp_sigma``.
+
+    ``shard`` = (rank, n) says that every leaf holds the rank-th of n equal
+    slices of its leading axis (a group-sharded exchange's M/n groups). The
+    noise is then that of the whole message: each group's matrix is drawn
+    (or given) at the whole message's rows, and the rows of this slice are
+    kept, so the values are the unsharded exchange's.
     """
     dp = dp_noise is not None or dp_generator is not None
     if not (0.0 < k_frac < 1.0) and not (levels and levels > 1) and not dp:
@@ -223,13 +245,16 @@ def compress_pytree(tree, k_frac: float, levels: int = 0, dp_clip=None, dp_sigma
     for gi, members in enumerate(groups):
         mat, k_rows, len_rows, counts = stack_rows([leaves[i] for i in members], k_frac)
         noise = None
+        whole = mat.shape if shard is None else (mat.shape[0] * shard[1], mat.shape[1])
         if dp_noise is not None:
-            noise = dp_noise[gi].to(device=mat.device, dtype=torch.float32).contiguous()
-            if noise.shape != mat.shape:
+            noise = dp_noise[gi].to(device=mat.device, dtype=torch.float32)
+            if noise.shape != whole:
                 raise ValueError(f"dp_noise {tuple(noise.shape)} does not match row group {gi} "
-                                 f"{tuple(mat.shape)}")
+                                 f"{tuple(whole)}")
         elif dp:
-            noise = torch.randn(mat.shape, generator=dp_generator, device=mat.device)
+            noise = torch.randn(whole, generator=dp_generator, device=mat.device)
+        if noise is not None:
+            noise = (noise if shard is None else _shard_rows(noise, counts, shard)).contiguous()
         out = compress_rows(mat, k_rows, levels, len_rows, dp_clip, dp_sigma, noise)
         del mat, noise
         off = 0

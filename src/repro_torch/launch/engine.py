@@ -70,6 +70,7 @@ import torch
 from repro_torch.common.buckets import pow2_ceil as _pow2_at_least
 from repro_torch.common.buckets import pow2_floor as _pow2_at_most
 from repro_torch.common.config import ModelConfig
+from repro_torch.common.executors import built
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import INT32_MAX
 
@@ -241,6 +242,7 @@ class ServeEngine:
 
                 fn = serve_prefill
             self._prefill_fns[key] = fn
+            built(fn.__name__, key)
         return fn
 
     def _decode_fn(self, B: int, cache_len: int, block: int):
@@ -264,6 +266,7 @@ class ServeEngine:
                 return caches, torch.stack(toks)  # toks: [block, B]
 
             fn = self._decode_fns[key] = serve_decode
+            built(fn.__name__, key)
         return fn
 
     def _insert_fn(self, Bp: int):
@@ -275,18 +278,20 @@ class ServeEngine:
             self._builds["insert"] += 1
 
             # ONE call admits the whole prefilled group: row i of the prefill
-            # caches lands in decode slot dst[i]; prefill pad rows carry
-            # dst == max_batch (out of range) and are dropped
+            # caches lands in decode slot dst[i] (the host's int32 array);
+            # prefill pad rows carry dst == max_batch (out of range) and are
+            # dropped
             def serve_insert(dec_caches, pre_caches, dst):
-                keep = np.flatnonzero(np.asarray(dst) < max_batch)
+                keep = np.flatnonzero(dst < max_batch)
                 src = torch.as_tensor(keep, dtype=torch.long, device=device)
-                to = torch.as_tensor(np.asarray(dst)[keep], dtype=torch.long, device=device)
+                to = torch.as_tensor(dst[keep], dtype=torch.long, device=device)
                 for group, axes in bx.items():
                     for d, p, ax in zip(dec_caches[group], pre_caches[group], axes):
                         d.index_copy_(ax, to, p.index_select(ax, src).to(d.dtype))
                 return dec_caches
 
             fn = self._insert_fns[key] = serve_insert
+            built(fn.__name__, key)
         return fn
 
     def _spec_fn(self, B: int, cache_len: int, block: int, gamma: int, dk: int):
@@ -327,6 +332,7 @@ class ServeEngine:
                 return caches, torch.stack(toks), torch.stack(n_emit)
 
             fn = self._spec_fns[key] = serve_spec_decode
+            built(fn.__name__, key)
         return fn
 
     def _harvest_fn(self, Bp: int, p: int, cache_len: int):
@@ -354,6 +360,7 @@ class ServeEngine:
                 return out
 
             fn = self._harvest_fns[key] = serve_harvest
+            built(fn.__name__, key)
         return fn
 
     def _attn_ring_len(self, cache_len: int) -> Optional[int]:

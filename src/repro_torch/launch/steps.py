@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.config import FederationConfig, InputShape, ModelConfig
+from repro_torch.common.executors import built
 from repro_torch.common.pytree import (tree_dot, tree_flatten, tree_leaves, tree_map,
                                        tree_unflatten)
 from repro_torch.common.sharding import (leading_slices, map_axes, map_structure,
@@ -584,7 +585,7 @@ class LLMRoundRunner:
                 stats["gnorm2"].append(tree_dot(gbar, gbar))
                 stats["delta2"].append(delta2)
                 stats["rho"].append(rho)
-                stats["rho_ok"].append(torch.full((), float(prev_g is not None),
+                stats["rho_ok"].append(torch.full((), 0.0 if prev_g is None else 1.0,
                                                   device=loss.device))
                 prev_g = gbar
         if not collect:
@@ -660,6 +661,7 @@ class LLMRoundRunner:
 
             fn = llm_round
         self._round_cache[key] = fn
+        built(fn.__name__, key)
         return fn
 
     def run_fixed(self, params, batch_fn, steps: int, P: int, Q: int, lr: float,

@@ -29,7 +29,7 @@ from repro.kernels.compress import compress_pytree as jax_compress_pytree
 from repro.kernels.compress import fused_compress_pallas
 from repro_torch.core import compression as TC
 from repro_torch.core.compression import compress_rows_ref, quantize
-from repro_torch.kernels import build, launch_counts, ops, reset_launch_counts
+from repro_torch.kernels import build, launch_counts, ops, ref, reset_launch_counts
 from repro_torch.kernels.compress import compress_pytree, compress_rows, fused_compress
 from repro_torch.kernels.compress_cases import EDGE_WIDTHS, edge_case_rows, same_values
 from repro_torch.kernels.topk_sparsify import topk_sparsify_cuda
@@ -290,6 +290,35 @@ def test_legacy_quantize_zero_anchored():
     assert (q[x == 0.0] == 0.0).all()
     step = (x.amax(-1) - x.amin(-1)) / 127
     assert (q - x).abs().max() <= step.max() / 2 + 1e-7
+
+
+@pytest.mark.parametrize("n,k", [(128, 13), (256, 1), (64, 64)])
+def test_topk_contains_exact_support(n, k):
+    """The twin of the reference's property test on the plain version of the
+    compress kernel with ``levels=0``: the threshold refinement keeps every
+    entry of the exact top-k support (``ref.topk_exact_ref``, a sort), with
+    at most k + 8 survivors a row (ties can add a few). The inputs are the
+    reference test's draws."""
+    x = torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(0), (8, n))))
+    kept = ref.topk_sparsify_ref(x, k) != 0
+    exact_kept = ref.topk_exact_ref(x, k) != 0
+    assert (kept & exact_kept).sum(dim=-1).min() >= min(k, n)  # exact support kept
+    assert (~kept & exact_kept).sum() == 0
+    assert kept.sum(dim=-1).max() <= k + 8
+    if k >= n:
+        assert kept.all() and exact_kept.all()
+
+
+def test_ref_module_re_exports_the_plain_versions():
+    """``kernels/ref.py`` is one import site for the plain versions that
+    live beside their kernels: the same functions, not copies."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+
+    assert ref.compress_rows_ref is compress_rows_ref
+    assert ref.topk_exact_ref is TC.topk_exact_ref
+    assert ref.flash_attention_ref is FA.flash_attention_ref
+    assert ref.ssm_scan_ref is SS.ssm_scan_ref and ref.ssm_scan_bwd_ref is SS.ssm_scan_bwd_ref
 
 
 def test_cpu_tensors_never_reach_the_kernel():

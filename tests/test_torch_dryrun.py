@@ -7,7 +7,9 @@ and the pod-stacked training programs on the (2, 2, 2) one; gemma3-1b
 train_4k at published widths on the fake production (16, 16) mesh
 completes, and each program's per-device argument bytes equal what the
 reference's specs give on an abstract (16, 16) mesh. long_500k skips where
-the reference's does.
+the reference's does. whisper-medium's encoder at published widths
+completes on a fake (4, 16) mesh, the smallest on which its MLP down
+projection met a strided all-to-all shard.
 """
 import jax
 import numpy as np
@@ -86,3 +88,17 @@ def test_dry_run_on_the_production_mesh():
     assert {k: v["argument_bytes"] for k, v in res["programs"].items()} == want
     assert run_one("stablelm-1.6b", "long_500k", verbose=False)["status"] == "skipped"
     assert run_one("whisper-medium", "long_500k", verbose=False)["status"] == "skipped"
+
+
+def test_dry_run_whisper_encoder_at_published_widths():
+    """whisper-medium at published widths, 32 requests, on a fake (4, 16)
+    mesh: the encoder's MLP hidden [32, 1500, 4096] is redistributed to
+    (data, None, model) through the fake group's all-gather and chunk,
+    which leaves each shard a strided view of a padded buffer; the down
+    projection's flattening view raised there until ``constrain`` made the
+    shard contiguous. A 64-token decoder prompt keeps the case short (the
+    (16, 16) ``prefill_32k`` cell raised at the same line)."""
+    res = run_one("whisper-medium", InputShape("prefill_32k", 64, 32, "prefill"), mesh=(4, 16),
+                  verbose=False)
+    assert res["status"] == "ok" and res["n_chips"] == 64
+    assert res["programs"]["serve_step"]["traced_flops"] > 0
