@@ -14,9 +14,10 @@ Phases, in order; any failure raises and the script exits nonzero:
      (CUDA graph replays timed by CUDA events) beside the least time the
      card could take and the launch floor (a one-element zero_() timed the
      same way); then the edge-case matrix: widths 1 to 4000 (every
-     register bucket, non-multiples of 32, the shared-memory body past
-     1024) with k <= 0, k >= len, len = 0, tied magnitudes, ±inf, NaN,
-     all-zero rows, subnormals, values near the fp32 maximum and rows with
+     register bucket, non-multiples of 32, the group body's one-warp and
+     one-CTA rows past 1024) with k <= 0, k >= len, len = 0, tied
+     magnitudes, ±inf, NaN, all-zero rows, subnormals, values near the
+     fp32 maximum and rows with
      no finite value (all NaN, all ±inf, NaN mixed with ±inf), at levels
      0, 16 and 128 (torch.equal; NaN only where both versions give NaN);
   2b. the same for the DP compress kernel (clip C, noise multiplier σ):
@@ -53,11 +54,15 @@ Phases, in order; any failure raises and the script exits nonzero:
      {"ok": true, "device": {...}} line.
 
 The LLM-scale federation (phases 2, 2b and after 3h):
-  2, 2b. the edge-case matrix also holds widths past one block's shared
-     memory (58113, 65536, 262144: the wide body, one block a row) and the
-     last width of the shared-memory body (58112), for both kernels; the
-     head's rows of gemma3-1b's exchange message, [1152, 262144] at
-     k = 25 %, b = 128, are held bit for bit and timed beside their bound;
+  2, 2b. the edge-case matrix also holds the first and last widths of the
+     group body's clusters of 2, 4 and 8 CTAs (32769 to 262144), widths an
+     older body ended at (58112, 58113, 65536) and the wide body's first
+     (262145), for both kernels; each width's body, as the library reports
+     it, must be the group body up to 262144 floats and the wide body past
+     it. The head's rows of gemma3-1b's exchange message, [1152, 262144] at
+     k = 25 %, b = 128, are held bit for bit and timed beside their bound
+     (phase 2 also qwen2-vl-72b's [16384, 29568] and [8192, 152064]), each
+     with its body, cluster size and share of the bound;
   3i. ``repro_torch.launch.train --arch gemma3-1b`` at the published widths
      (26 layers, d 1152, V 262144; --batch 2 --seq 64, random weights):
      --steps 20 --compression-k 0.25 --quantization 128 --pods 2, and
@@ -228,9 +233,9 @@ Phase 3d also prints the device bytes allocated at its start.
 
 The audio family, whisper-medium, and the last two example twins (phase 2's
 head rows, then after 3o and 4i respectively):
-  2. also whisper-medium's head rows [1024, 51865] (k = 25 %, b = 128: a
-     width not a multiple of 32 in the shared-memory body), bit for bit and
-     timed beside its bound;
+  2. also whisper-medium's head rows [1024, 51865] (k = 25 %, b = 128: an
+     odd width, rows not 16-byte aligned, on a cluster of 2 CTAs), bit for
+     bit and timed beside its bound;
   3p. ``repro_torch.launch.serve --arch whisper-medium --full --batch 4
      --prompt-len 416 --gen 32`` (416 + 32 = whisper's 448-token text
      context, cache bucket 512; 24 encoder and 24 decoder layers, d 1024,
@@ -373,7 +378,8 @@ the fp32 peak, 67 TFLOP/s, beside the card's name and power limit):
      raises; CUDA events (median of 21 launches) time the sort path against
      the compress kernel at the main path's message (leaf by leaf, against
      ``compress_pytree`` and the bare kernel) and at [16384, 29568],
-     [8192, 152064] and [1152, 262144] with k = 0.25, b = 128;
+     [8192, 152064] and [1152, 262144] with k = 0.25, b = 128, the
+     kernel's body, cluster size and share of the bound beside it;
   3zb. the compress kernel with levels=0 (``topk_sparsify_cuda``) at the
      reference property test's (n, k) and at [2900, 128], k = 32: equal to
      its plain version, a superset of ``kernels/ref.py::topk_exact_ref``'s
@@ -397,7 +403,6 @@ import os
 import re
 import resource
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -430,7 +435,9 @@ from repro_torch.examples import quickstart, serve_batched, train_100m_hsgd  # n
 from repro_torch.kernels import build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels import compress as compress_kernels  # noqa: E402
 from repro_torch.kernels import ref as kernel_ref  # noqa: E402
-from repro_torch.kernels.compress import compress_pytree, fused_compress, stack_rows  # noqa: E402
+from repro_torch.kernels.compress import (CLUSTER_ROW_FLOATS, NARROW_WIDTH,  # noqa: E402
+                                          compress_pytree, fused_compress, kernel_body,
+                                          stack_rows)
 from repro_torch.kernels.topk_sparsify import topk_sparsify_cuda  # noqa: E402
 from repro_torch.kernels.compress_cases import EDGE_WIDTHS, edge_case_rows, same_values  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
@@ -440,7 +447,8 @@ from repro_torch.kernels.ssm_scan import (SSMScan, ssm_scan_bwd_cuda,  # noqa: E
 from repro_torch.launch import loadgen, profile_serve, profile_train, serve  # noqa: E402
 from repro_torch.launch import steps as llm_steps  # noqa: E402
 from repro_torch.launch.engine import ServeEngine, sequential_generate  # noqa: E402
-from repro_torch.launch.timing import device_ms  # noqa: E402
+from repro_torch.launch.timing import (card_rates, compress_bound_ms, device_ms,  # noqa: E402
+                                       event_median_ms)
 from repro_torch.data.synthetic import llm_batch_fn  # noqa: E402
 from repro_torch.launch.steps import LLMRoundRunner, init_llm_params  # noqa: E402
 from repro_torch.launch.flops import traced_flops  # noqa: E402
@@ -454,20 +462,12 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.split_model import llm_hybrid  # noqa: E402
 from repro_torch.models.ssm import CHUNK as SSM_CHUNK  # noqa: E402
 
-# Data-sheet rates, dense, at the full power limit: (memory B/s, fp32 FLOP/s
-# outside the tensor cores). Matched on the name nvidia-smi reports.
-CARD_RATES = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),  # SXM
-    ("H200", 4.8e12, 67e12),
-)
 MAIN_ARGV = ["--model", "paper-cnn", "--dataset", "organamnist", "--algorithm", "c-hsgd",
              "--groups", "10", "--devices", "64", "--alpha", "0.25", "--samples", "2048",
              "--p", "4", "--q", "2"]
 PRIVATE_ARGV = ["--dp-clip", "1", "--dp-sigma", "1", "--secure-agg"]
 ADAPTIVE_ARGV = ["--adaptive", "--dp-clip", "1", "--dp-sigma", "1", "--epsilon", "25"]
-# bf16 dense tensor-core rate, FLOP/s, matched as CARD_RATES is
+# bf16 dense tensor-core rate, FLOP/s, matched as launch/timing.py::CARD_RATES is
 CARD_BF16_RATES = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12),
                    ("H200", 989e12))
 # TF32 dense tensor-core rate: half the bf16 rate
@@ -568,8 +568,9 @@ LLM_ADAPTIVE_ARGV = ["--arch", "gemma3-1b", "--adaptive", "--steps", "16", "--ma
                      "--compression-k", "0.25", "--quantization", "128"]
 # the head's rows of that message: [d_model, vocab] (phases 2 and 2b)
 HEAD_SHAPE = (1152, 262144)
-# the widest row of the compress kernels' shared-memory body (csrc/compress.cu)
-SMEM_ROW_FLOATS = 58112
+# qwen2-vl-72b's widest row groups of one published-width layer (phase 2:
+# the MLP rows and the head), beside gemma3-1b's and whisper's heads
+VLM_HEAD_SHAPES = ((16384, 29568), (8192, 152064))
 LLM_GROUPS = 4  # row groups of one gemma3-1b exchange message
 # the scan's backward kernel against its plain version (phase 2e): (name,
 # (B, T, C), the decay a, ∂h_last nonzero); the first is the hybrid
@@ -691,29 +692,6 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def card_rates(name: str):
-    for key, bw, flops in CARD_RATES:
-        if key in name:
-            return bw, flops
-    raise RuntimeError(f"chip_smoke: no data-sheet rates for card {name!r}")
-
-
-def compress_bound_ms(mat, row_len, levels: int, bw: float, flops: float, dp: bool = False):
-    """Least time for one fused compress: bytes (each row's valid prefix read
-    once, and with DP as much again of noise; the whole matrix written once
-    with its padding as 0; k and row_len read once) over the memory rate,
-    against operations (per valid element: 1 max + 16 bisection compares +
-    1 keep compare; with quantization 2 extrema + sub, div, round, mul, add;
-    with DP the square and sum of the norm and the scale, noise product and
-    add) over the fp32 rate. Returns (bound_ms, bound_by)."""
-    rows, n = mat.shape
-    valid = int(row_len.sum())
-    nbytes = valid * 4 * (2 if dp else 1) + rows * n * 4 + 2 * rows * 4
-    ops = valid * (18 + (7 if levels > 1 else 0) + (5 if dp else 0))
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def compare_compress(name, mat, k_rows, len_rows, levels, bw, flops, floor_ms, dp=None):
     """Kernel vs plain version on one input: bit-identical, then timed, with
     the launch floor ``floor_ms`` beside it. ``dp`` = (clip, sigma, noise),
@@ -805,10 +783,17 @@ def dp_operands(mat, clip: float, sigma: float, seed: int = 1):
 def check_edge_cases(device, dp: bool):
     """The compress kernel (``dp``: the DP kernel, C=1, σ=0.5) against its
     plain version on every edge case at every width in EDGE_WIDTHS (every
-    register bucket of 1..32 values a lane, non-multiples of 32, and the
-    shared-memory body past 1024) and levels 0, 16 and 128."""
+    register bucket of 1..32 values a lane, non-multiples of 32, the first
+    and last widths of the group body's one-warp, one-CTA and cluster rows
+    and the wide body past them) and levels 0, 16 and 128; each width's
+    body as the library reports it is the one its width calls for."""
     checked = 0
     for n in EDGE_WIDTHS:
+        body = kernel_body(n)["body"]
+        want_body = ("register body" if n <= NARROW_WIDTH else
+                     "group body" if n <= CLUSTER_ROW_FLOATS else "wide body")
+        check(body == want_body, f"edge cases n={n}: the library runs the {body}, not the "
+                                 f"{want_body}")
         mat, k_rows, len_rows = (t.to(device) for t in edge_case_rows(n))
         dp_args = dp_operands(mat, 1.0, 0.5) if dp else ()
         for lv in (0, 16, 128):
@@ -822,7 +807,8 @@ def check_edge_cases(device, dp: bool):
                              f"len={len_rows[bad].tolist()})")
             checked += mat.shape[0]
     print(f"[kernel] {'DP ' if dp else ''}edge cases: {checked} rows at widths {EDGE_WIDTHS} "
-          f"x levels 0, 16, 128: equal to plain (torch.equal; NaN where both are NaN)")
+          f"x levels 0, 16, 128: equal to plain (torch.equal; NaN where both are NaN); "
+          f"bodies {[(n, body_text(kernel_body(n))) for n in EDGE_WIDTHS if n > NARROW_WIDTH]}")
 
 
 def check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops, floor_ms):
@@ -1824,12 +1810,18 @@ def check_head_rows(device, bw, flops, dp: bool, shape=HEAD_SHAPE):
     plain_ms = device_ms(lambda: compress_rows_ref(mat, k_rows, 128, len_rows, *dp_args),
                          inner=1, reps=3)
     bound, bound_by = compress_bound_ms(mat, len_rows, 128, bw, flops, dp)
-    body = "wide body, one block a row" if n > SMEM_ROW_FLOATS else "shared-memory body"
-    print(f"[kernel] {tag} levels=128 k=25%: bit-identical ({body}) "
+    body = kernel_body(n)
+    print(f"[kernel] {tag} levels=128 k=25%: bit-identical ({body_text(body)}) "
           f"kernel_ms={ms} plain_ms={plain_ms} bound_ms={bound} ({bound_by}) "
           f"bound/kernel={bound / ms} library_ms=null")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "body": body}
+
+
+def body_text(body: dict) -> str:
+    """A compress body as ``kernel_body`` reports it, in words."""
+    return (f"{body['body']}, cluster of {body['ctas']} CTA(s), {body['threads']} threads "
+            f"of {body['values']} values a CTA")
 
 
 @contextlib.contextmanager
@@ -2864,22 +2856,6 @@ def same_start_private_adaptive(device, mesh=None):
             [(h["P"], h["Q"], h["rung"], h["dp_rung"]) for h in res.history])
 
 
-def event_median_ms(fn, n: int = SORT_LAUNCHES) -> float:
-    """Median of ``n`` launches of ``fn`` timed by CUDA events, each its own
-    pair, after one warm-up call drained."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def main_path_steps_per_s(device):
     """The main path (phase 3's run: MAIN_ARGV, MAIN_ROUNDS rounds) through
     ``HSGDRunner.run`` on the fused compress kernel and on the legacy sort
@@ -2975,7 +2951,9 @@ def check_sort_path(device, bw, flops):
         kernel_ms = event_median_ms(lambda: fused_compress(x, k, 128))
         bound, bound_by = compress_bound_ms(x, torch.full((rows,), n), 128, bw, flops)
         times[f"{rows}x{n}"] = {"shape": [rows, n], "sort_ms": sort_ms, "kernel_ms": kernel_ms,
-                                "bound_ms": bound, "bound_by": bound_by}
+                                "bound_ms": bound, "bound_by": bound_by,
+                                "kernel_bound_share": bound / kernel_ms,
+                                "kernel_body": kernel_body(n)}
         del x
         torch.cuda.empty_cache()
     for key, t in times.items():
@@ -3069,11 +3047,14 @@ def main() -> int:
     check_edge_cases(device, dp=False)
     head_cmp = check_head_rows(device, bw, flops, dp=False)
     audio_head_cmp = check_head_rows(device, bw, flops, dp=False, shape=AUDIO_HEAD_SHAPE)
+    vlm_cmps = [check_head_rows(device, bw, flops, dp=False, shape=shape)
+                for shape in VLM_HEAD_SHAPES]
 
     # -- phase 2b: the DP kernel against plain, bit for bit ------------------
     main_dp, max_err_dp = check_dp_kernel(mat, k_rows, len_rows, levels, bw, flops, floor_ms)
     head_dp = check_head_rows(device, bw, flops, dp=True)
-    max_err = max(max_err, head_cmp["max_abs_err"], audio_head_cmp["max_abs_err"])
+    max_err = max(max_err, head_cmp["max_abs_err"], audio_head_cmp["max_abs_err"],
+                  *(c["max_abs_err"] for c in vlm_cmps))
     max_err_dp = max(max_err_dp, head_dp["max_abs_err"])
 
     # -- phase 2c: the flash-attention kernel against plain ------------------

@@ -41,6 +41,7 @@ SIGNATURES = {
     "compress": {
         "compress_rows_f32": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
         "compress_rows_dp_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "compress_body_info": ([_I, _P], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {

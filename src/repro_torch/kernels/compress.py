@@ -10,6 +10,14 @@ which clips each row and adds Gaussian noise first, counted under
 row; both kernels are bit-identical to the plain version
 ``core/compression.py::compress_rows_ref``.
 
+The kernels run one of three bodies by row width (``kernel_body`` reports
+which): rows of at most ``NARROW_WIDTH`` floats in registers, one warp a
+row; rows up to ``CLUSTER_ROW_FLOATS`` on the group body, one row on a CTA
+of up to 32 warps (up to 32 768 floats) or on a thread-block cluster of 2,
+4 or 8 CTAs, each row read from device memory once into shared memory and
+registers; rows wider still on the wide body, which reads the row again at
+every pass.
+
 ``compress_rows`` routes by the tensor's device alone: a CPU tensor goes to
 the plain version, a CUDA tensor to the kernel. There is no switch and no
 fallback: what the kernel does not take raises.
@@ -30,6 +38,7 @@ group, or handed in.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -44,6 +53,10 @@ from repro_torch.kernels.build import load
 # Rows of at most this many floats share one matrix (the register bodies);
 # each wider width gets one of its own.
 NARROW_WIDTH = 1024
+# The widest row of the group body: 8 CTAs (a portable cluster) of 1024
+# threads holding 32 floats each (csrc/compress.cu::kClusterRowFloats).
+CLUSTER_ROW_FLOATS = 8 * 1024 * 32
+BODIES = {1: "register body", 2: "group body", 3: "wide body"}
 # ...unless padding them to the widest of them would add more than this many
 # bytes of fp32 and more floats than they hold; then each narrow width gets
 # one of its own. Two pods' messages: whisper-medium's 64-wide rows would
@@ -127,6 +140,19 @@ def fused_compress(
         raise RuntimeError(f"{fn} launch failed: {lib.cuda_error_string(err).decode()}")
     launch_counts[counter] += 1
     return out
+
+
+def kernel_body(n: int, lib: Optional[ctypes.CDLL] = None) -> dict:
+    """The body the CUDA kernels run for rows of ``n`` floats, as the built
+    library (``lib``, else the package's own) reports it: ``body``
+    (register, group or wide), ``values`` a thread, ``ctas`` a row (the
+    cluster size) and ``threads`` a CTA."""
+    info = (ctypes.c_int * 4)()
+    lib = lib or load("compress")
+    err = lib.compress_body_info(int(n), ctypes.cast(info, ctypes.c_void_p))
+    if err:
+        raise ValueError(f"compress_body_info({n}): {lib.cuda_error_string(err).decode()}")
+    return {"body": BODIES[info[0]], "values": info[1], "ctas": info[2], "threads": info[3]}
 
 
 def compress_rows(

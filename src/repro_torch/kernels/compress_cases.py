@@ -10,11 +10,14 @@ from __future__ import annotations
 import torch
 
 # Row widths of the edge-case matrix: every register bucket of the CUDA
-# kernel (1 to 32 values a lane), non-multiples of 32, the shared-memory
-# body past 1024 up to its last width (58112 floats, one block's shared
-# memory), and the wide body past it (an LLM head's vocabulary axis).
-EDGE_WIDTHS = (1, 31, 33, 64, 100, 128, 255, 300, 512, 1000, 1024, 1025, 4000, 58112,
-               58113, 65536, 262144)
+# kernel (1 to 32 values a lane), non-multiples of 32, the first and last
+# width of each bucket of the group body past 1024 (one warp a row up to
+# 1280, one CTA a row up to 32768, clusters of 2, 4 and 8 CTAs up to 262144
+# floats; odd widths, whose rows are not 16-byte aligned, among them),
+# widths an older body ended at (58112, 58113, 65536), and the wide body
+# past the cluster's reach (262145).
+EDGE_WIDTHS = (1, 31, 33, 64, 100, 128, 255, 300, 512, 1000, 1024, 1025, 1280, 1281, 4000,
+               32768, 32769, 58112, 58113, 65536, 65537, 131072, 131073, 262144, 262145)
 
 
 def edge_case_rows(n: int, seed: int = 0):

@@ -55,36 +55,84 @@ def _normal(seed, shape):
 
 # threads of the wide body's block (one block a row)
 WIDE_BLOCK = 256
+# the group body's limits (csrc/compress.cu): one warp a row up to 32 x 40
+# floats; past it floats a CTA's slice, values a thread, CTAs a cluster
+WARP_ROW_VALUES, SLICE_FLOATS, GROUP_VALUES, MAX_CLUSTER = 40, 32768, 64, 8
+
+
+def _group_shape(n):
+    """csrc/compress.cu::group_shape: (V values a thread, C CTAs a row (0:
+    one warp a row), S columns a CTA's slice, T threads a row on a CTA) for
+    a row of n > 1024 floats, or None past the cluster's reach (the wide
+    body)."""
+    if n <= 32 * WARP_ROW_VALUES:
+        return WARP_ROW_VALUES, 0, -(-n // 32) * 32, 32
+    C = 1
+    while C <= MAX_CLUSTER:
+        S = ((n - 1) // C + 32) // 32 * 32
+        if S <= SLICE_FLOATS:
+            return GROUP_VALUES, C, S, -(-S // (32 * GROUP_VALUES)) * 32
+        C *= 2
+    return None
 
 
 def _bucket(n):
     """The kernel's body for a row width: V values a lane (the fewest of 1,
-    2, 4, ..., 32 that hold n), 0 for the shared-memory body past 1024, or
-    -1 for the wide body past 58112 floats (one block's shared memory)."""
-    if n * 4 > 232448:
-        return -1
-    return next((v for v in (1, 2, 4, 8, 16, 32) if n <= 32 * v), 0)
+    2, 4, ..., 32 that hold n) in the register body; in the group body
+    "warp-row" (one warp a row), "group" (one CTA a row) or "cluster-C"
+    (a cluster of C CTAs); "wide" past 262144 floats."""
+    if n <= 1024:
+        return next(v for v in (1, 2, 4, 8, 16, 32) if n <= 32 * v)
+    shape = _group_shape(n)
+    if shape is None:
+        return "wide"
+    C = shape[1]
+    return "warp-row" if C == 0 else "group" if C == 1 else f"cluster-{C}"
+
+
+def _group_lanes(x, row_len):
+    """The group body's layout of one row: [C, T, V] values, thread t of CTA
+    c holding slice columns 4(t + T*i) + e (i < V/4, e < 4) of the slice
+    from c*S, NaN at or past row_len and past the row."""
+    n = x.shape[0]
+    V, C, S, T = _group_shape(n)
+    C = max(C, 1)
+    quad = np.arange(T)[:, None] + T * np.arange(V // 4)[None, :]
+    local = (4 * quad[:, :, None] + np.arange(4)).reshape(T, V)
+    cols = np.arange(C)[:, None, None] * S + local[None]
+    inside = (local[None] < S) & (cols < min(row_len, n))
+    lanes = np.full(cols.shape, np.nan, np.float32)
+    lanes[inside] = x[cols[inside]]
+    return lanes, cols, inside
 
 
 def _emulated_threshold(x, k, row_len):
     """The CUDA kernel's bisection of one row of width n = len(x) in numpy
-    float32. Lane l holds columns l + 32*i: in the register body V slots a
+    float32. In the register body lane l holds columns l + 32*i, V slots a
     lane, loaded whole (padding included) when the row is at most 512
     bytes, then NaN from row_len on and narrowed to the fewest W in
-    {1, 2, 4, ..., V} slots that hold the valid prefix; in the shared-memory
-    body ceil(row_len/32) slots, NaN past row_len; in the wide body thread t
-    of a 256-thread block holds columns t + 256*i of the valid prefix. hi is
-    the unsigned max of the bit patterns bits & 0x7fffffff over the valid
-    columns; each of the 16 steps counts |x| >= mid per lane (thread), sums
-    the counts as one uint32 (__reduce_add_sync, then across the block's
-    warps) and moves lo or hi. Returns the threshold lo."""
+    {1, 2, 4, ..., V} slots that hold the valid prefix. In the group body
+    (``_group_lanes``) each thread holds V values of its CTA's slice, and
+    a step's count is summed by REDUX a warp, then over the C*G warp slots
+    of the cluster (one warp a row: the REDUX alone). In the wide body
+    thread t of a 256-thread block holds columns t + 256*i of the valid
+    prefix, its count summed a warp, then over the block's 8 warps. hi is the unsigned max of the bit patterns
+    bits & 0x7fffffff over the valid columns; each of the 16 steps counts
+    |x| >= mid per lane (thread), sums the counts as uint32 warp by warp and
+    moves lo or hi. Returns the threshold lo."""
     n, V = x.shape[0], _bucket(x.shape[0])
-    if V < 0:
+    if V == "wide":
         steps = np.arange(-(-row_len // WIDE_BLOCK))
         cols = np.arange(WIDE_BLOCK)[:, None] + WIDE_BLOCK * steps[None, :]
+        valid = cols < row_len
         lanes = np.full(cols.shape, np.nan, np.float32)
-        lanes[cols < row_len] = x[cols[cols < row_len]]
-    elif V:
+        lanes[valid] = x[cols[valid]]
+        warp_of = lambda cnt: cnt.reshape(-1, 32).sum(axis=1, dtype=np.uint32)
+    elif isinstance(V, str):
+        lanes, cols, valid = _group_lanes(x, row_len)
+        C, T = lanes.shape[:2]
+        warp_of = lambda cnt: cnt.reshape(C, T // 32, 32).sum(axis=2, dtype=np.uint32)
+    else:
         W = next(w for w in (1, 2, 4, 8, 16, 32) if w >= V or row_len <= 32 * w)
         cols = np.arange(32)[:, None] + 32 * np.arange(V)[None, :]
         whole = V * 32 * 4 <= 512
@@ -93,19 +141,17 @@ def _emulated_threshold(x, k, row_len):
         loaded[inside] = x[cols[inside]]
         lanes = np.where(cols < row_len, loaded, np.float32(np.nan))[:, :W]
         cols = cols[:, :W]
-    else:
-        cols = np.arange(32)[:, None] + 32 * np.arange(-(-row_len // 32))[None, :]
-        lanes = np.full(cols.shape, np.nan, np.float32)
-        lanes[cols < row_len] = x[cols[cols < row_len]]
-    valid = cols < row_len
+        valid = cols < row_len
+        warp_of = lambda cnt: cnt.sum(dtype=np.uint32)
     bits = np.where(valid, lanes.view(np.uint32) & np.uint32(0x7FFFFFFF), np.uint32(0))
     hi = np.array(bits.max(initial=0), np.uint32).view(np.float32)[()]
     lo, half = np.float32(0.0), np.float32(0.5)
     for _ in range(16):
         with np.errstate(invalid="ignore", over="ignore"):
             mid = half * (lo + hi)
-            cnt = (np.abs(lanes) >= mid).sum(axis=1).astype(np.uint32)
-        lo, hi = (mid, hi) if int(cnt.sum(dtype=np.uint32)) >= k else (lo, mid)
+            cnt = (np.abs(lanes) >= mid).sum(axis=-1).astype(np.uint32)
+        total = warp_of(cnt).sum(dtype=np.uint32)
+        lo, hi = (mid, hi) if int(total) >= k else (lo, mid)
     return lo
 
 
@@ -132,19 +178,45 @@ def _check_emulation(x, k, row_len):
     assert torch.equal(torch.from_numpy(np.where(kept, x, np.float32(0.0))), plain)
 
 
-@pytest.mark.parametrize("V", [-1, 0, 1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("V", [1, 2, 4, 8, 16, 32, "warp-row", "group", "cluster-2", "cluster-4",
+                               "cluster-8", "wide"])
 def test_lookahead_emulation_matches_serial_on_edge_rows(V):
     """The kernel's bisection (look-ahead depth 1: one mid and one REDUX
     count a step) and unsigned-pattern max, emulated in the layout of the
-    body with V values a lane (0: the shared-memory body, -1: the wide
-    body), against the serial bisection on every edge-case row of the widths
-    that body takes."""
+    body V (V values a lane in the register body; the group body on one warp,
+    on one CTA or on a cluster of C CTAs; the wide body), against
+    the serial bisection on every edge-case row of the widths that body
+    takes."""
     widths = [n for n in EDGE_WIDTHS if _bucket(n) == V]
     assert widths
     for n in widths:
         x, k, row_len = (t.numpy() for t in edge_case_rows(n))
         for r in range(x.shape[0]):
             _check_emulation(x[r], int(k[r]), int(row_len[r]))
+
+
+@pytest.mark.parametrize("n", [1025, 1281, 32769, 65537, 131073, 262144])
+def test_group_norm_chain_matches_warp_order(n):
+    """The DP norm in the group body: warp 0 of each CTA, in rank order,
+    continues the 32 lane sums over its slice of the stage (columns below
+    the row's valid length), then the last CTA's butterfly. Emulated in
+    numpy float32, it has the bits of ``warp_order_sqnorm``, the plain
+    version's order, because every slice starts at a multiple of 32."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n).astype(np.float32)
+    row_len = n - n // 7
+    _, C, S, _ = _group_shape(n)
+    s = np.zeros(32, np.float32)
+    for c in range(max(C, 1)):
+        lc = max(0, min(row_len - c * S, S, n - c * S))
+        part = np.zeros(-(-lc // 32) * 32, np.float32)
+        part[:lc] = x[c * S:c * S + lc]
+        for m in range(part.shape[0] // 32):
+            s = s + part[32 * m:32 * m + 32] * part[32 * m:32 * m + 32]
+    while s.shape[0] > 1:
+        s = s[:s.shape[0] // 2] + s[s.shape[0] // 2:]
+    sq = torch.from_numpy(np.where(np.arange(n) < row_len, x * x, np.float32(0))[None])
+    assert s.view(np.uint32)[0] == TC.warp_order_sqnorm(sq).numpy().view(np.uint32)[0, 0]
 
 
 def test_lookahead_emulation_matches_serial_property():
@@ -370,7 +442,7 @@ def test_kernel_matches_plain(levels):
     assert torch.equal(topk_sparsify_cuda(dense, 32), compress_rows_ref(dense, 32, 0))
     _assert_compress_close(got.cpu().numpy(), compress_rows_ref(x, k, levels, row_len).numpy(),
                            x.numpy(), levels)
-    for n in EDGE_WIDTHS:  # every register bucket and the shared-memory body
+    for n in EDGE_WIDTHS:  # every register bucket, the group body and the wide body
         xe, ke, le = (t.to(dev) for t in edge_case_rows(n))
         got = fused_compress(xe, ke, levels, le)
         want = compress_rows_ref(xe, ke, levels, le)

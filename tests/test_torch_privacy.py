@@ -380,7 +380,7 @@ def test_dp_kernel_matches_plain(levels):
                        fused_compress(x, k, levels, row_len))
     assert launch_counts["fused_compress_dp"] == 5
     c, s = torch.tensor(1.0, device=dev), torch.tensor(0.5, device=dev)
-    for n in EDGE_WIDTHS:  # every register bucket and the shared-memory body
+    for n in EDGE_WIDTHS:  # every register bucket, the group body and the wide body
         xe, ke, le = (t.to(dev) for t in edge_case_rows(n))
         ne = torch.from_numpy(_normal(n, tuple(xe.shape))).to(dev)
         got = fused_compress(xe, ke, levels, le, c, s, ne)
