@@ -34,7 +34,13 @@ left, on a fresh token stream every exchange interval:
       --compression-k 0.25 --quantization 128 --rounds 2
 
 (or ``--arch falcon-mamba-7b``, ``--arch zamba2-2.7b``: their Mamba layers
-launch the scan's forward and backward kernels, counted in the line).
+launch the scan's forward and backward kernels, counted in the line). The
+round's spans (``common/spans.py``: ``hsgd.round``, ``hsgd.global_agg``,
+``hsgd.exchange`` and its towers and compress, ``hsgd.step`` and its
+hospital, device and update phases) record under the profiled pass: the
+line's ``spans`` holds, for each span name, that pass's count, device ms,
+self device ms, host ms and launches of the port's kernels, summed over its
+rounds (``spans.summed(spans.rounds())``).
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from collections import defaultdict
 
 import torch
 
+from repro_torch.common import spans
 from repro_torch.common.backend import resolve_device
 from repro_torch.core.baselines import make_runner
 from repro_torch.core.hsgd import init_state
@@ -155,6 +162,8 @@ def main(argv=None):
     steps = int(len(losses))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    if args.arch:
+        spans.clear()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         state, _ = run_rounds(state, args.rounds)
@@ -190,6 +199,8 @@ def main(argv=None):
         "top_kernels_us": sorted(((n, t) for n, t in by_name.items()),
                                  key=lambda kv: -kv[1])[:8],
     }
+    if args.arch:
+        out["spans"] = spans.summed(spans.rounds())
     print(json.dumps(out))
     return out
 

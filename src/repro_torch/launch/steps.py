@@ -11,6 +11,11 @@ Three programs per training shape; their costs combine as
     steps, the whole {θ0, ζ1, ζ2} message through ``compress_pytree``;
   * ``make_global_agg`` — eq. (2) across pod groups, every P steps.
 
+They run inside spans (``common/spans.py``), timed on the device while a
+profiler traces and one flag check each otherwise:
+  hsgd.round > hsgd.global_agg (G > 1), hsgd.exchange (> .towers,
+  .compress), hsgd.step (> .hospital, .device, .update).
+
 ``LLMRoundRunner`` assembles them into one round executor per (P, Q, k, b,
 collect[, dp]) bucket, and ``AdaptiveLLMRunner`` drives the §VI
 plan/probe/governor loop (``core/controller.ControllerCore``) over those
@@ -43,6 +48,7 @@ import torch
 
 from repro_torch.common.config import FederationConfig, InputShape, ModelConfig
 from repro_torch.common.executors import built
+from repro_torch.common.spans import span
 from repro_torch.common.pytree import (tree_dot, tree_flatten, tree_leaves, tree_map,
                                        tree_unflatten)
 from repro_torch.common.sharding import (leading_slices, map_axes, map_structure,
@@ -194,14 +200,16 @@ def hybrid_grads(model: HybridModel, params, stale, batch):
     def hosp_loss(t):
         return model.loss(t["theta0"], model.h1(t["theta1"], batch["x1"]), z2_stale, batch["y"])
 
-    loss, g01 = _grads(hosp_loss, {"theta0": params["theta0"], "theta1": params["theta1"]})
+    with span("hsgd.step.hospital"):
+        loss, g01 = _grads(hosp_loss, {"theta0": params["theta0"], "theta1": params["theta1"]})
     theta0_stale = tree_map(torch.Tensor.detach, stale["theta0"])
     z1_stale = stale["z1"].detach()
 
     def dev_loss(t2):
         return model.loss(theta0_stale, z1_stale, model.h2(t2, batch["x2"]), batch["y"])
 
-    _, g2 = _grads(dev_loss, params["theta2"])
+    with span("hsgd.step.device"):
+        _, g2 = _grads(dev_loss, params["theta2"])
     return loss, {"theta0": g01["theta0"], "theta1": g01["theta1"], "theta2": g2}
 
 
@@ -218,8 +226,10 @@ def make_hsgd_train_step(model: HybridModel, lr: float = 1e-3):
     (flat params); ``params`` is updated in place."""
 
     def step(params, stale, batch, lr=lr):
-        loss, grads = hybrid_grads(model, params, stale, batch)
-        return _apply_update(params, grads, _eta(lr)), loss
+        with span("hsgd.step"):
+            loss, grads = hybrid_grads(model, params, stale, batch)
+            with span("hsgd.step.update"):
+                return _apply_update(params, grads, _eta(lr)), loss
 
     return step
 
@@ -242,26 +252,29 @@ def make_hsgd_step_stats(model: HybridModel, n_shards: int = 2):
             raise ValueError(f"probe-collecting step needs batch size divisible by "
                              f"n_shards={n_shards}, got {B}")
         b = B // n_shards
-        losses, shard_leaves, treedef = [], [], None
-        for s in range(n_shards):
-            cut = lambda x: x[s * b:(s + 1) * b]
-            stale_s = {"theta0": stale["theta0"], "z1": cut(stale["z1"]), "z2": cut(stale["z2"])}
-            loss, g = hybrid_grads(model, params, stale_s, tree_map(cut, batch))
-            losses.append(loss)
-            leaves, treedef = tree_flatten(g)
-            shard_leaves.append(leaves)
-        gbar_leaves, dev = [], 0
-        for i in range(len(shard_leaves[0])):
-            xs = torch.stack([sl[i] for sl in shard_leaves]).float()  # [n_shards, ...]
-            for sl in shard_leaves:
-                sl[i] = None  # one leaf's shard grads at a time
-            m = torch.mean(xs, dim=0)
-            dev = dev + torch.sum((xs - m[None]) ** 2, dim=tuple(range(1, xs.dim())))
-            gbar_leaves.append(m)
-        gbar = tree_unflatten(treedef, gbar_leaves)
-        _apply_update(params, gbar, _eta(lr))
-        aux = {"gbar": gbar, "gnorm2": tree_dot(gbar, gbar), "delta2": torch.mean(dev)}
-        return params, torch.mean(torch.stack(losses)), aux
+        with span("hsgd.step"):
+            losses, shard_leaves, treedef = [], [], None
+            for s in range(n_shards):
+                cut = lambda x: x[s * b:(s + 1) * b]
+                stale_s = {"theta0": stale["theta0"], "z1": cut(stale["z1"]),
+                           "z2": cut(stale["z2"])}
+                loss, g = hybrid_grads(model, params, stale_s, tree_map(cut, batch))
+                losses.append(loss)
+                leaves, treedef = tree_flatten(g)
+                shard_leaves.append(leaves)
+            with span("hsgd.step.update"):
+                gbar_leaves, dev = [], 0
+                for i in range(len(shard_leaves[0])):
+                    xs = torch.stack([sl[i] for sl in shard_leaves]).float()  # [n_shards, ...]
+                    for sl in shard_leaves:
+                        sl[i] = None  # one leaf's shard grads at a time
+                    m = torch.mean(xs, dim=0)
+                    dev = dev + torch.sum((xs - m[None]) ** 2, dim=tuple(range(1, xs.dim())))
+                    gbar_leaves.append(m)
+                gbar = tree_unflatten(treedef, gbar_leaves)
+                _apply_update(params, gbar, _eta(lr))
+                aux = {"gbar": gbar, "gnorm2": tree_dot(gbar, gbar), "delta2": torch.mean(dev)}
+            return params, torch.mean(torch.stack(losses)), aux
 
     return step
 
@@ -290,19 +303,22 @@ def make_exchange_step(model: HybridModel, compression_k: float = 0.0, quant: in
             return torch.stack([a for a, _ in z]), torch.stack([b for _, b in z])
 
     def exchange(params, batch, dp_clip=None, dp_sigma=None, dp_noise=None, dp_generator=None):
-        z1, z2 = towers(params, batch)
-        msg = {"theta0": params["theta0"], "z1": z1, "z2": z2}
-        if compression_k or quant or dp:
-            if dp and dp_noise is None and dp_generator is None:
-                raise ValueError("the DP exchange needs dp_noise or a dp_generator")
-            msg = compress_pytree(msg, compression_k or 1.0, quant,
-                                  dp_clip=dp_clip if dp else None,
-                                  dp_sigma=dp_sigma if dp else None,
-                                  dp_noise=dp_noise if dp else None,
-                                  dp_generator=dp_generator if dp else None)
-        if msg["theta0"] is params["theta0"]:  # the steps update params in place
-            msg = {**msg, "theta0": tree_map(torch.clone, params["theta0"])}
-        return msg
+        with span("hsgd.exchange"):
+            with span("hsgd.exchange.towers"):
+                z1, z2 = towers(params, batch)
+            msg = {"theta0": params["theta0"], "z1": z1, "z2": z2}
+            if compression_k or quant or dp:
+                if dp and dp_noise is None and dp_generator is None:
+                    raise ValueError("the DP exchange needs dp_noise or a dp_generator")
+                with span("hsgd.exchange.compress"):
+                    msg = compress_pytree(msg, compression_k or 1.0, quant,
+                                          dp_clip=dp_clip if dp else None,
+                                          dp_sigma=dp_sigma if dp else None,
+                                          dp_noise=dp_noise if dp else None,
+                                          dp_generator=dp_generator if dp else None)
+            if msg["theta0"] is params["theta0"]:  # the steps update params in place
+                msg = {**msg, "theta0": tree_map(torch.clone, params["theta0"])}
+            return msg
 
     return exchange
 
@@ -337,13 +353,14 @@ def make_global_agg():
         if pod_weights is not None:
             w = torch.as_tensor(pod_weights, dtype=torch.float32)
             w = w / torch.sum(w)
-        for x in tree_leaves(params):
-            if w is None:
-                g = torch.mean(x.float(), dim=0, keepdim=True)
-            else:
-                wb = w.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
-                g = torch.sum(x.float() * wb, dim=0, keepdim=True)
-            x.copy_(g.to(x.dtype).expand_as(x))
+        with span("hsgd.global_agg"):
+            for x in tree_leaves(params):
+                if w is None:
+                    g = torch.mean(x.float(), dim=0, keepdim=True)
+                else:
+                    wb = w.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+                    g = torch.sum(x.float() * wb, dim=0, keepdim=True)
+                x.copy_(g.to(x.dtype).expand_as(x))
         return params
 
     return agg
@@ -551,46 +568,47 @@ class LLMRoundRunner:
                     pod_weights=None, dp: bool = False, dp_clip=None, dp_sigma=None,
                     dp_noise=None, dp_generator=None):
         model, G = self.model, self.n_pods
-        if G > 1:
-            # eq. (2) across pod groups; pod_weights = the population layer's
-            # staleness-damped semi-async weights (None = synchronous mean)
-            params = make_global_agg()(params, pod_weights)
-        exch = make_exchange_step(model, compression_k, quant_levels, dp=dp, n_pods=G)
-        step = (make_hsgd_step_stats(model, self.n_shards) if collect
-                else make_hsgd_train_step(model))
-        stats = {k: [] for k in ("loss", "gnorm2", "delta2", "rho", "rho_ok")}
-        for i in range(lam):
-            batch_i = _pod(batches, i)
-            # the last interval's message goes before the next one is built:
-            # at full width each holds a copy of θ0 for every pod
-            stale = None
-            stale = exch(params, batch_i, dp_clip, dp_sigma,
-                         None if dp_noise is None else dp_noise[i], dp_generator)
-            prev_g = None
-            for _ in range(Q):
-                outs = [step(_pod(params, g), _pod(stale, g), _pod(batch_i, g), eta)
-                        for g in range(G)]
-                loss = torch.mean(torch.stack([o[1] for o in outs]))
-                stats["loss"].append(loss)
-                if not collect:
-                    continue
-                gbar, delta2 = self._pod_mean_stats([o[2] for o in outs])
-                if prev_g is None:
-                    rho = torch.zeros((), device=loss.device)
-                else:
-                    diff = torch.sqrt(sum(torch.sum((x - y) ** 2) for x, y in
-                                          zip(tree_leaves(gbar), tree_leaves(prev_g))))
-                    den = eta * torch.sqrt(tree_dot(prev_g, prev_g))
-                    rho = diff / torch.clamp_min(den, 1e-12)
-                stats["gnorm2"].append(tree_dot(gbar, gbar))
-                stats["delta2"].append(delta2)
-                stats["rho"].append(rho)
-                stats["rho_ok"].append(torch.full((), 0.0 if prev_g is None else 1.0,
-                                                  device=loss.device))
-                prev_g = gbar
-        if not collect:
-            return params, torch.stack(stats["loss"])
-        return params, {k: torch.stack(v) for k, v in stats.items()}
+        with span("hsgd.round"):
+            if G > 1:
+                # eq. (2) across pod groups; pod_weights = the population layer's
+                # staleness-damped semi-async weights (None = synchronous mean)
+                params = make_global_agg()(params, pod_weights)
+            exch = make_exchange_step(model, compression_k, quant_levels, dp=dp, n_pods=G)
+            step = (make_hsgd_step_stats(model, self.n_shards) if collect
+                    else make_hsgd_train_step(model))
+            stats = {k: [] for k in ("loss", "gnorm2", "delta2", "rho", "rho_ok")}
+            for i in range(lam):
+                batch_i = _pod(batches, i)
+                # the last interval's message goes before the next one is built:
+                # at full width each holds a copy of θ0 for every pod
+                stale = None
+                stale = exch(params, batch_i, dp_clip, dp_sigma,
+                             None if dp_noise is None else dp_noise[i], dp_generator)
+                prev_g = None
+                for _ in range(Q):
+                    outs = [step(_pod(params, g), _pod(stale, g), _pod(batch_i, g), eta)
+                            for g in range(G)]
+                    loss = torch.mean(torch.stack([o[1] for o in outs]))
+                    stats["loss"].append(loss)
+                    if not collect:
+                        continue
+                    gbar, delta2 = self._pod_mean_stats([o[2] for o in outs])
+                    if prev_g is None:
+                        rho = torch.zeros((), device=loss.device)
+                    else:
+                        diff = torch.sqrt(sum(torch.sum((x - y) ** 2) for x, y in
+                                              zip(tree_leaves(gbar), tree_leaves(prev_g))))
+                        den = eta * torch.sqrt(tree_dot(prev_g, prev_g))
+                        rho = diff / torch.clamp_min(den, 1e-12)
+                    stats["gnorm2"].append(tree_dot(gbar, gbar))
+                    stats["delta2"].append(delta2)
+                    stats["rho"].append(rho)
+                    stats["rho_ok"].append(torch.full((), 0.0 if prev_g is None else 1.0,
+                                                      device=loss.device))
+                    prev_g = gbar
+            if not collect:
+                return params, torch.stack(stats["loss"])
+            return params, {k: torch.stack(v) for k, v in stats.items()}
 
     @staticmethod
     def _pod_mean_stats(auxes):

@@ -20,19 +20,20 @@ What differs from the reference, and why:
     the card gives the same bits.
 
 The dispatch (router, slots, scatter), the experts' products and the
-combine run inside ``torch.profiler.record_function`` ranges named by
-``MOE_RANGES``, which ``launch/profile_serve.py`` reads to split the
-device time by kernel class.
+combine run inside spans (``common/spans.py``) named by ``MOE_RANGES``:
+while a profiler traces, each is a ``torch.profiler.record_function``
+range, which ``launch/profile_serve.py`` reads to split the device time by
+kernel class; otherwise each costs one check of the profiler's flag.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.sharding import constrain, use_weight
+from repro_torch.common.spans import span
 from repro_torch.models import layers as L
 from repro_torch.models.mlp import mlp_forward, mlp_specs
 
@@ -95,7 +96,7 @@ def moe_forward(params, x, cfg: ModelConfig):
     T = B * S
     C = _capacity(T, E, k)
     flat = x.reshape(T, D)
-    with record_function(MOE_RANGES[0]):
+    with span(MOE_RANGES[0]):
         probs, gate, idx = route(params, flat, cfg)
         density = torch.mean(torch.nn.functional.one_hot(idx[:, 0], E).float(), dim=0)
         aux_loss = E * torch.sum(density * torch.mean(probs, dim=0))
@@ -109,7 +110,7 @@ def moe_forward(params, x, cfg: ModelConfig):
         buf = constrain(buf, ("experts", "expert_tokens", None))
         del src
 
-    with record_function(MOE_RANGES[1]):
+    with span(MOE_RANGES[1]):
         act = L.ACTIVATIONS["silu" if cfg.mlp in ("swiglu", "geglu") else "gelu"]
         wg = use_weight(params["w_gate"], ("experts", "embed", "mlp"))
         wu = use_weight(params["w_up"], ("experts", "embed", "mlp"))
@@ -122,7 +123,7 @@ def moe_forward(params, x, cfg: ModelConfig):
         eout = eout.view(E * C, D)
         del h
 
-    with record_function(MOE_RANGES[2]):
+    with span(MOE_RANGES[2]):
         picked = eout[flat_idx * C + torch.where(keep, pos, C - 1)]
         picked = torch.where(keep[:, None], picked, 0.0)
         weighted = (picked * gate.reshape(-1)[:, None].to(x.dtype)).view(T, k, D)
