@@ -169,8 +169,9 @@ Serving the ssm family (after phase 2c, 3d and 4c respectively):
   3e. ``repro_torch.launch.serve`` with --arch falcon-mamba-7b --full --batch
      2 --prompt-len 4096 --gen 32, the launch counters zeroed just before
      and read just after: exactly 1024 scan launches for the prefill (64
-     layers x 16 chunks of 256 tokens) plus 64 per decode step, no other
-     kernel of the port, 64 tokens in [0, V), prefill seconds, ms a decode
+     layers x 16 chunks of 256 tokens) plus 64 per decode step, as many
+     discretize launches (one before each scan), no other kernel of the
+     port, 64 tokens in [0, V), prefill seconds, ms a decode
      step, peak device memory and the seconds the weights took to draw on
      the card and the host's peak resident memory; then one layer's w_in
      (6.7e7 values) drawn as on the CPU, with its seconds and memory;
@@ -210,6 +211,14 @@ respectively):
      b = 0, and a = 1e-30; each also as SSMScan's gradient through
      torch.autograd.grad; the kernel's and the plain version's times
      beside the bytes bound;
+  2f. the Mamba-1 discretize kernels against the eager chain they replace
+     (DISCRETIZE_CASES: falcon-mamba-7b's training chunk [2, 256, 8192,
+     16] and decode step, K and d off the kernels' tiles, N 7): a and b bit
+     for bit (torch.equal), ∂dt, ∂x, ∂B, ∂A through Mamba1Discretize within
+     1e-5 of each sum's magnitude (only the order of the sums differs) and
+     bit-identical over two runs; the forward kernel, the backward kernel
+     with its sums, the chain's forward and the chain's forward and
+     backward timed beside the bytes bounds; no spills;
   3n. ``repro_torch.launch.train --arch zamba2-2.7b --steps 20
      --compression-k 0.25 --quantization 128 --pods 2`` at published widths
      (54 Mamba-2 layers, d 2560, 80 SSD heads of 64 x 64, N 64, V 32000;
@@ -442,6 +451,8 @@ from repro_torch.kernels.topk_sparsify import topk_sparsify_cuda  # noqa: E402
 from repro_torch.kernels.compress_cases import EDGE_WIDTHS, edge_case_rows, same_values  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
                                                  flash_attention_ref)
+from repro_torch.kernels.mamba1_discretize import (  # noqa: E402
+    Mamba1Discretize, mamba1_discretize_bwd_cuda, mamba1_discretize_cuda, mamba1_discretize_ref)
 from repro_torch.kernels.ssm_scan import (SSMScan, ssm_scan_bwd_cuda,  # noqa: E402
                                           ssm_scan_bwd_ref, ssm_scan_cuda, ssm_scan_ref)
 from repro_torch.launch import loadgen, profile_serve, profile_train, serve  # noqa: E402
@@ -586,6 +597,15 @@ SCAN_BWD_CASES = (
     ("a = 1 with b = 0", (2, 45, 300), "one", True),
     ("strong decay, a = 1e-30", (2, 64, 1000), "strong", True),
 )
+# the Mamba-1 discretize kernels against the chain (phase 2f): (name, (B, K,
+# d_inner, N)); the first is falcon-mamba-7b's training chunk
+DISCRETIZE_CASES = (
+    ("falcon-mamba-7b training chunk", (2, 256, 8192, 16)),
+    ("falcon-mamba-7b decode step, K = 1", (2, 1, 8192, 16)),
+    ("K = 37, d = 200: off the steps and tiles", (3, 37, 200, 16)),
+    ("N = 7: one float a lane", (2, 45, 33, 7)),
+)
+DISCRETIZE_SUM_TOL = 1e-5
 # the ssm and hybrid training cells (phases 3n, 3o): the reference CLI's
 # --batch 2 --seq 64 and fixed rounds at published widths, random weights
 TRAIN_ARGV = ["--steps", "20", "--compression-k", "0.25", "--quantization", "128", "--pods", "2"]
@@ -598,7 +618,9 @@ FALCON_TRAIN_LAYERS = 16
 TRAIN_CELLS = {
     "zamba2-2.7b": (54, 7, {"ssm_scan": 4440, "ssm_scan_bwd": 4400, "fused_compress": 70}),
     "falcon-mamba-7b": (FALCON_TRAIN_LAYERS, 5,
-                        {"ssm_scan": 1400, "ssm_scan_bwd": 1360, "fused_compress": 50}),
+                        {"ssm_scan": 1400, "ssm_scan_bwd": 1360, "mamba1_discretize": 1400,
+                         "mamba1_discretize_bwd": 1360, "mamba1_discretize_sum": 1360,
+                         "fused_compress": 50}),
     # no Mamba layer: row groups of widths 64, 1024, 4096 and 51865
     "whisper-medium": (0, 4, {"fused_compress": 40}),
     # the MoE family at smoke widths (phase 3u): every row of the message is
@@ -1029,6 +1051,93 @@ def check_scan_bwd_kernel(device, name):
               f"library_ms=null (no single PyTorch call computes this function)")
         del a, b, h0, hs, d_hs, d_last, want
     return results[SCAN_BWD_CASES[0][0]], max_err
+
+
+def discretize_bounds_ms(shape, bw):
+    """Least times of the discretize kernels (fp32, bytes): the forward
+    reads dt, x, B, A and writes a and b once; the backward reads ∂a, ∂b
+    and dt, x, B, A once and writes ∂dt, ∂x, ∂B, ∂A once."""
+    B, K, d, N = shape
+    big, small = 2 * B * K * d * N, 2 * B * K * d + B * K * N + d * N
+    return 4 * (big + small) / bw * 1e3, 4 * (big + 2 * small) / bw * 1e3
+
+
+def check_discretize_kernels(device, name):
+    """Phase 2f: the Mamba-1 discretize kernels against the eager chain on
+    every case: the forward bit for bit, the gradients through
+    ``Mamba1Discretize`` within DISCRETIZE_SUM_TOL of each sum's magnitude
+    and bit-identical over two runs; timed beside the chain and the bounds.
+    Returns the forward's and the backward's comparisons at the training
+    chunk, each as the ``kernels`` line lays out a kernel."""
+    bw, _ = card_rates(name)
+    check_no_spills("mamba1_discretize")
+    results = {}
+    for case, shape in DISCRETIZE_CASES:
+        B, K, d, N = shape
+        g = torch.Generator(device=device).manual_seed(sum(shape))
+        # laid out as mamba1_forward hands them over: chunk views and a slice
+        dt = (torch.rand(B, 2 * K, d, generator=g, device=device) * 0.5)[:, K:]
+        x = torch.randn(B, 2 * K, d, generator=g, device=device)[:, :K]
+        bm = torch.randn(B, K, 2 * N + 5, generator=g, device=device)[..., :N]
+        A = -torch.exp(torch.randn(d, N, generator=g, device=device) * 0.5)
+        d_a = torch.randn(B, K, d, N, generator=g, device=device)
+        d_b = torch.randn(B, K, d, N, generator=g, device=device)
+        got = mamba1_discretize_cuda(dt, x, bm, A)
+        want = mamba1_discretize_ref(dt, x, bm, A)
+        torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip(got, want)),
+              f"discretize {case}: the forward kernel differs from the chain")
+        del got, want
+        leaves = [t.clone().requires_grad_() for t in (dt, x, bm, A)]
+        want = torch.autograd.grad(mamba1_discretize_ref(*leaves), leaves, (d_a, d_b))
+        runs = [torch.autograd.grad(Mamba1Discretize.apply(*leaves), leaves, (d_a, d_b))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip(*runs)),
+              f"discretize {case}: two backward runs differ")
+        a64 = torch.exp(dt.double()[..., None] * A.double())
+        ga = (d_a.double() * a64).abs()
+        gb = (d_b.double() * bm.double()[:, :, None, :]).abs().sum(-1)
+        mags = [(ga * A.double().abs()).sum(-1) + gb * x.double().abs(), gb * dt.double().abs(),
+                (d_b.double().abs() * (dt.double() * x.double()).abs()[..., None]).sum(2),
+                (ga * dt.double().abs()[..., None]).sum((0, 1))]
+        del a64, ga, gb
+        rel = [float(((u.double() - v.double()).abs() / m.clamp_min(1e-300)).max())
+               for u, v, m in zip(runs[0], want, mags)]
+        max_err = max(float((u - v).abs().max()) for u, v in zip(runs[0], want))
+        check(max(rel) <= DISCRETIZE_SUM_TOL,
+              f"discretize {case}: gradients off the chain's by {rel} of their sums' magnitudes")
+        del runs, want, mags
+        ms = device_ms(lambda: mamba1_discretize_cuda(dt, x, bm, A))
+        bwd_ms = device_ms(lambda: mamba1_discretize_bwd_cuda(d_a, d_b, dt, x, bm, A))
+        plain_ms = device_ms(lambda: mamba1_discretize_ref(dt, x, bm, A), inner=5, reps=11)
+        plain_fwd_bwd_ms = device_ms(
+            lambda: torch.autograd.grad(mamba1_discretize_ref(*leaves), leaves, (d_a, d_b)),
+            inner=5, reps=11)
+        # the chain's backward alone over one graph built on the default stream,
+        # which a CUDA graph cannot capture: CUDA events around each call
+        chain = mamba1_discretize_ref(*leaves)
+        plain_bwd_ms = event_median_ms(
+            lambda: torch.autograd.grad(chain, leaves, (d_a, d_b), retain_graph=True), n=11)
+        del chain
+        bound, bwd_bound = discretize_bounds_ms(shape, bw)
+        results[case] = (
+            {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": "bytes", "library_ms": None},
+            {"max_abs_err": max_err, "grad_err_of_magnitude": rel, "ms": bwd_ms,
+             "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound, "bound_by": "bytes",
+             "library_ms": None})
+        print(f"[discretize] {case}: shape={list(shape)} forward bit-identical, gradients "
+              f"(dt, x, B, A) off the chain's by {rel} of their sums' magnitudes, two runs "
+              f"bit-identical; fwd_ms={ms} bound_ms={bound} fwd/bound={ms / bound} "
+              f"bwd_ms={bwd_ms} (kernel and sums) bwd_bound_ms={bwd_bound} "
+              f"bwd/bound={bwd_ms / bwd_bound} chain fwd_ms={plain_ms} chain "
+              f"bwd_ms={plain_bwd_ms} chain fwd_bwd_ms={plain_fwd_bwd_ms} "
+              f"kernels fwd+bwd / chain = "
+              f"{(ms + bwd_ms) / plain_fwd_bwd_ms} library_ms=null (no single PyTorch call "
+              f"computes this function)")
+        del dt, x, bm, A, d_a, d_b, leaves
+    return results[DISCRETIZE_CASES[0][0]]
 
 
 def host_rss_bytes() -> int:
@@ -1960,12 +2069,18 @@ def train_launches(args, layers: int, groups: int):
     scan chunk a layer (θ0's 64 tokens and a tower's 32 are one chunk of at
     most 256): a scan and a backward scan launch a layer and pass; every
     exchange also runs both towers without grad on each pod (one scan
-    launch each). With none (whisper: dense towers) nothing else launches."""
+    launch each). A Mamba-1 layer (falcon-mamba) adds a discretize launch
+    before each scan, and a discretize backward and a sum launch after
+    each backward scan. With none (whisper: dense towers) nothing else
+    launches."""
     exchanges = (args.steps // args.p) * (args.p // args.q)
     out = {"fused_compress": groups * exchanges}
     if layers:
         per_step = 2 * (layers + 1) * args.steps * args.pods
         out.update(ssm_scan=per_step + 2 * args.pods * exchanges, ssm_scan_bwd=per_step)
+        if get_config(args.arch).ssm_version == 1:
+            out.update(mamba1_discretize=out["ssm_scan"], mamba1_discretize_bwd=per_step,
+                       mamba1_discretize_sum=per_step)
     return out
 
 
@@ -3066,6 +3181,9 @@ def main() -> int:
     # -- phase 2e: the scan's backward kernel against plain, bit for bit ------
     scan_bwd_main, max_err_scan_bwd = check_scan_bwd_kernel(device, name)
 
+    # -- phase 2f: the Mamba-1 discretize kernels against the eager chain -----
+    discretize_main, discretize_bwd_main = check_discretize_kernels(device, name)
+
     # -- phase 3: the main path -------------------------------------------
     args = parse_args(MAIN_ARGV + ["--device", "cuda", "--rounds", str(MAIN_ROUNDS)])
     reset_launch_counts()
@@ -3196,8 +3314,9 @@ def main() -> int:
           f"peak_device_bytes={report['peak_device_bytes']} "
           f"peak_device_GiB={report['peak_device_bytes'] / 2 ** 30} "
           f"init_s={report['init_s']} (weights of {ssm_cfg.param_count()} params drawn on the card)")
-    check(counts_ssm == {"ssm_scan": want},
-          f"ssm serving path launches {counts_ssm}, expected {want} scan launches and no other")
+    check(counts_ssm == {"ssm_scan": want, "mamba1_discretize": want},
+          f"ssm serving path launches {counts_ssm}, expected {want} scan and {want} discretize "
+          f"launches and no other")
     check(report["generated_tokens"] == 2 * gen, f"generated {report['generated_tokens']} tokens")
     check(len(tokens) == 2 and all(len(t) == gen and all(0 <= x < ssm_cfg.vocab_size for x in t)
                                    for t in tokens), "ssm serving tokens out of [0, V)")
@@ -3481,6 +3600,27 @@ def main() -> int:
         "bound_ms": scan_bwd_main["bound_ms"],
         "bound_by": scan_bwd_main["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "mamba1_discretize",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba1_discretize.cu",
+        # no TPU kernel: the reference builds a and b in jax.numpy
+        "replaces": "jax.numpy in src/repro/models/ssm.py (mamba1_forward's chunk body)",
+        "launches": counts_ssm["mamba1_discretize"] + sum(
+            cell["launches"].get("mamba1_discretize", 0) for cell in train_summary.values()),
+        **discretize_main,
+    }, {
+        "name": "mamba1_discretize_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba1_discretize.cu",
+        # no TPU kernel: the reference takes jax.grad through the chain
+        "replaces": "jax.grad through src/repro/models/ssm.py (mamba1_forward's chunk body)",
+        "launches": sum(cell["launches"].get("mamba1_discretize_bwd", 0)
+                        for cell in train_summary.values()),
+        # the second stage that adds the backward's per-block partials of dB and dA
+        "sum_launches": sum(cell["launches"].get("mamba1_discretize_sum", 0)
+                            for cell in train_summary.values()),
+        **discretize_bwd_main,
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

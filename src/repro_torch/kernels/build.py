@@ -7,13 +7,13 @@ by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused.
 
 Flags: ``sm_90a`` (Hopper, with its ``wgmma``/``setmaxnreg`` target), and
-``--fmad=false`` with no fast math, so that the compress and scan kernels
-round exactly as their plain PyTorch versions do. The flash-attention kernel,
-held to a tolerance instead, does its products on the tensor cores
-(``wgmma`` for bf16, ``mma.sync`` 3xTF32 for fp32), which the flag does not
-touch; it gets ``cuTensorMapEncodeTiled`` through the runtime's
-``cudaGetDriverEntryPoint``, so no library links ``libcuda``. ``-Xptxas=-v``
-writes each kernel's registers and spills into the build log.
+``--fmad=false`` with no fast math, so that the compress, scan and Mamba-1
+discretize kernels round exactly as their plain PyTorch versions do. The
+flash-attention kernel, held to a tolerance instead, does its products on
+the tensor cores (``wgmma`` for bf16, ``mma.sync`` 3xTF32 for fp32), which
+the flag does not touch; it gets ``cuTensorMapEncodeTiled`` through the
+runtime's ``cudaGetDriverEntryPoint``, so no library links ``libcuda``.
+``-Xptxas=-v`` writes each kernel's registers and spills into the build log.
 """
 from __future__ import annotations
 
@@ -35,7 +35,8 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # registers, shared memory and spills into the build log
     "-shared", "-Xcompiler", "-fPIC",
 )
-# C signatures: every pointer and the stream as c_void_p, ints as c_int.
+# C signatures: every pointer and the stream as c_void_p (a ctypes array of
+# int64 strides too), ints as c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "compress": {
@@ -46,6 +47,11 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "mamba1_discretize": {
+        "mamba1_discretize_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+        "mamba1_discretize_bwd": ([_P] * 12 + [_I] * 7 + [_P, _P], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "ssm_scan": {

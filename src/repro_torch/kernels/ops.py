@@ -6,7 +6,10 @@ card. ``fused_compress`` is ``core/compression.py::compress_message``
 ``[B, S, H, D]`` and folds the heads into rows for
 ``kernels/flash_attention.py``; ``ssm_scan`` takes ``[B, T, ...]`` and folds
 the trailing dims into channels for ``kernels/ssm_scan.py``'s autograd route
-``SSMScan`` (the forward and backward kernels on the card).
+``SSMScan`` (the forward and backward kernels on the card);
+``mamba1_discretize`` builds a Mamba-1 chunk's a = exp(dt·A) and
+b = (dt·x)·B through ``kernels/mamba1_discretize.py`` (its autograd route
+``Mamba1Discretize`` on the card, the plain chain otherwise).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.core.compression import compress_message as fused_compress
 from repro_torch.kernels.flash_attention import flash_attention as _flash_rows
+from repro_torch.kernels.mamba1_discretize import mamba1_discretize  # noqa: F401
 from repro_torch.kernels.ssm_scan import ssm_scan as _scan_channels
 
 

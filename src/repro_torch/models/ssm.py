@@ -8,8 +8,10 @@ the hand-written scan kernel and a CPU tensor its sequential plain version.
 Only the chunk's states exist at a time, never the whole history: [B, K,
 d_inner, N] for Mamba-1, [B, K, H, P, N] for Mamba-2, whose per-head scalar
 decay is broadcast over P·N as the reference broadcasts it (the scan folds
-H·P·N into channels). Decode is one recurrence step on the carried state
-(K = 1).
+H·P·N into channels). Mamba-1 builds each chunk's a and b through
+``ops.mamba1_discretize`` (the discretize kernels for a CUDA tensor, the
+plain chain otherwise); Mamba-2's scalar decay stays eager. Decode is one
+recurrence step on the carried state (K = 1).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.sharding import constrain, shard_count, use_weight
+from repro_torch.common.spans import span
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.attention import CacheSpec
@@ -229,8 +232,8 @@ def mamba1_forward(params, x, cfg: ModelConfig, state: Optional[Tuple] = None):
     chunks = [_to_chunks(v, nchunk, pad, K) for v in (dt, xcf, Bm.float(), Cm.float())]
     ys = []
     for dtc, xcc, Bc, Cc in zip(*chunks):  # [B,K,d_in] [B,K,d_in] [B,K,N] [B,K,N]
-        ac = torch.exp(dtc[..., None] * A)
-        bxc = (dtc * xcc)[..., None] * Bc[:, :, None, :]
+        with span("mamba1.discretize"):  # ac = exp(dt·A), bxc = (dt·x)·B
+            ac, bxc = ops.mamba1_discretize(dtc, xcc, Bc, A)
         hs, h = _chunk_recurrence(ac, bxc, h)
         ys.append(torch.einsum("bkcn,bkn->bkc", hs, Cc))
     y = _from_chunks(ys, T)

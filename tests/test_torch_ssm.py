@@ -15,8 +15,14 @@ the plain backward bit for bit, is within 1e-6 of torch autograd through
 order) and within 1e-5 of ``jax.grad`` through the reference's
 ``chunked_linear_recurrence``. The CUDA kernels against the plain versions,
 bit for bit, run only on the card (``gpu`` marker). Mamba-2 (zamba2's SSD heads) is held in
-``tests/test_torch_hybrid.py``.
+``tests/test_torch_hybrid.py``. Mamba-1's discretization route
+(``ops.mamba1_discretize``) takes the eager chain on the CPU and on meta
+tensors, so a layer's outputs, gradients and FLOP count are the chain's bit
+for bit; its kernels are held against the chain on the card in
+``tests/test_torch_discretize.py``.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +39,8 @@ from repro.models import ssm as JS
 from repro.models import transformer as JT
 from repro_torch.common.config import get_config
 from repro_torch.kernels import build, launch_counts, ops, reset_launch_counts
+from repro_torch.kernels import mamba1_discretize as MD
+from repro_torch.launch.flops import traced_flops
 from repro_torch.kernels.ssm_scan import (SSMScan, ssm_scan, ssm_scan_bwd_cuda,
                                           ssm_scan_bwd_ref, ssm_scan_cuda, ssm_scan_ref)
 from repro_torch.models import quant as Q
@@ -330,6 +338,93 @@ def test_cuda_wrapper_refuses_what_it_does_not_take():
         ssm_scan_cuda(a, b, h0)
     with pytest.raises(ValueError, match="rank 3"):
         ssm_scan_cuda(a[0], b[0], h0[0])
+
+
+@pytest.mark.parametrize("d_in,N", [(16, 4), (64, 16)])
+@pytest.mark.parametrize("T_len", [1, 37, 256, 300])
+def test_discretize_route_is_the_chain_on_the_cpu(T_len, d_in, N):
+    """On the CPU ``ops.mamba1_discretize`` is ``mamba1_discretize_ref``, the
+    eager chain: a, b and the gradients of dt, x, B and A bit for bit, with
+    no kernel launched. A Mamba-1 layer on the CPU, with and without a
+    carried state, is held against the reference in
+    ``test_mamba1_forward_matches_reference``."""
+    B = 2
+    g = torch.Generator().manual_seed(T_len)
+    raw = (torch.rand(B, T_len, d_in, generator=g), torch.randn(B, T_len, d_in, generator=g),
+           torch.randn(B, T_len, N, generator=g), -torch.exp(torch.randn(d_in, N, generator=g)))
+    cots = (torch.randn(B, T_len, d_in, N, generator=g),
+            torch.randn(B, T_len, d_in, N, generator=g))
+    reset_launch_counts()
+    outs = []
+    for fn in (ops.mamba1_discretize, MD.mamba1_discretize_ref):
+        leaves = [t.clone().requires_grad_() for t in raw]
+        ab = fn(*leaves)
+        outs.append([t.detach() for t in ab] + list(torch.autograd.grad(ab, leaves, cots)))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    assert not launch_counts
+
+
+def test_discretize_route_on_meta_tensors_takes_the_chain(monkeypatch):
+    """Meta tensors take the chain: the route's outputs are meta tensors of
+    the chunk's shape, and a Mamba-1 layer's forward-and-backward count in
+    ``launch/flops.py`` equals the count with ``mamba1_discretize_ref`` in
+    its place, at the cell's widths over one 256-token chunk."""
+    cfg = get_config("falcon-mamba-7b")
+    dev = torch.device("meta")
+    a, b = ops.mamba1_discretize(torch.empty(2, 256, 8192, device=dev),
+                                 torch.empty(2, 256, 8192, device=dev),
+                                 torch.empty(2, 256, 16, device=dev),
+                                 torch.empty(8192, 16, device=dev))
+    assert a.is_meta and b.is_meta and a.shape == b.shape == (2, 256, 8192, 16)
+
+    def layer_pass():
+        params = {k: torch.empty(spec.shape, device=dev, requires_grad=True)
+                  for k, spec in S.mamba_specs(cfg).items()}
+        x = torch.empty(2, 256, cfg.d_model, device=dev, requires_grad=True)
+        y, _ = S.mamba1_forward(params, x, cfg)
+        torch.autograd.grad(y.sum(), [x, *params.values()])
+
+    counts = []
+    for fn in (ops.mamba1_discretize, MD.mamba1_discretize_ref):
+        monkeypatch.setattr(ops, "mamba1_discretize", fn)
+        counts.append(traced_flops(layer_pass))
+    assert counts[0] == counts[1] and counts[0].total > counts[0].matmul > 0
+
+
+@pytest.mark.parametrize("N,layout", [(16, (4, 2)), (8, (4, 1)), (12, (4, 2)), (7, (1, 3)),
+                                      (64, (4, 4)), (2, (2, 0))])
+def test_discretize_layout_and_refusals(N, layout):
+    """The kernels' lanes a row for N (V floats a lane, log2 of the lanes,
+    padded to a power of two) and the backward's time steps within 48 KB of
+    shared memory; the CUDA wrappers refuse CPU tensors and N past 32 lanes."""
+    big = torch.empty(2, 4, 8, N)
+    assert MD._layout(N, big) == layout
+    steps = MD._bwd_steps(N)
+    assert 1 <= steps <= 32 and 4 * 8 * steps * N <= 48 * 1024
+    dt, x, Bm, A = torch.rand(2, 4, 8), torch.rand(2, 4, 8), torch.rand(2, 4, N), torch.rand(8, N)
+    with pytest.raises(ValueError, match="CUDA"):
+        MD.mamba1_discretize_cuda(dt, x, Bm, A)
+    with pytest.raises(ValueError, match="CUDA"):
+        MD.mamba1_discretize_bwd_cuda(big, big, dt, x, Bm, A)
+    with pytest.raises(ValueError, match="N up to"):
+        MD._layout(129, torch.empty(1))
+
+
+def test_discretize_source_builds_for_hopper():
+    cmd = " ".join(build.nvcc_command(build.CSRC / "mamba1_discretize.cu", "/dev/null"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and "--fmad=false" in cmd
+    assert {"mamba1_discretize_fwd", "mamba1_discretize_bwd",
+            "cuda_error_string"} == set(build.SIGNATURES["mamba1_discretize"])
+    src = (build.CSRC / "mamba1_discretize.cu").read_text()
+    assert "__fmul_rn" in src and "__fadd_rn" in src and "expf(" in src
+    assert not re.search(r"\batomic\w*\s*\(", src)  # deterministic sums: no atomics
+    kernels = re.findall(r"__global__ void __launch_bounds__\(kThreads\)\s+(\w+)", src)
+    assert kernels == ["mamba1_discretize_fwd_kernel", "mamba1_discretize_bwd_kernel",
+                       "mamba1_discretize_sum_kernel"]
+    # the benchmark's readers find the scan and compress kernels by these names
+    assert not any(bad in k for k in kernels
+                   for bad in ("ssm_scan_kernel", "ssm_scan_bwd_kernel", "compress_"))
 
 
 def test_scan_source_builds_for_hopper():
