@@ -26,7 +26,6 @@ import torch
 
 from hsgd_bench import check, counts, tokens, trace
 from hsgd_bench import weights as W
-from hsgd_bench.reference import model as RM
 from hsgd_bench.reference import round as RR
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -75,7 +74,7 @@ class Program:
         from repro_torch.launch.steps import LLMRoundRunner
         from repro_torch.models.split_model import llm_hybrid
         cfg, tr = cell["config"], cell["traffic"]
-        self.layout = RM.param_layout(cfg["model"], cfg["n_tower"])
+        self.layout = cell["reference"].param_layout(cfg["model"], cfg["n_tower"])
         fields = {k: tuple(v) if isinstance(v, list) else v for k, v in cfg["model"].items()}
         model = llm_hybrid(ModelConfig(**fields), n_tower=cfg["n_tower"], remat=False)
         _layout_matches(self.layout, model.specs())
@@ -102,8 +101,8 @@ def reference_rounds(cell: Dict, seed: int, batches, dev, tf32: bool = False, fa
     """The reference's (losses, norms) over ``batches``, from the seed's
     weights; ``tf32`` computes its fp32 products in TF32 (the control);
     ``fault(pods, batch) -> batch`` plants a fault before each round."""
-    cfg, tr = cell["config"], cell["traffic"]
-    layout = RM.param_layout(cfg["model"], cfg["n_tower"])
+    cfg, tr, model = cell["config"], cell["traffic"], cell["reference"]
+    layout = model.param_layout(cfg["model"], cfg["n_tower"])
     params = W.draw(layout, seed, tr["pods"], dev)
     pods = [RR.tree_map(lambda x, g=g: x[g], params) for g in range(tr["pods"])]
     eta = float(np.float32(tr["lr"]))
@@ -114,7 +113,8 @@ def reference_rounds(cell: Dict, seed: int, batches, dev, tf32: bool = False, fa
         for r, batch in enumerate(batches, 1):
             if fault is not None:
                 batch = fault(pods, batch)
-            out = RR.run_round(cfg["model"], pods, batch, eta, tr["P"], tr["Q"], tr["k"], tr["b"])
+            out = RR.run_round(model, cfg["model"], pods, batch, eta, tr["P"], tr["Q"], tr["k"],
+                               tr["b"])
             losses.append(out.float().cpu().tolist())
             if r in (1, len(batches)):
                 norms[r] = W.change_norms(params, layout, seed)
@@ -141,7 +141,7 @@ def _traced(cell: Dict, prog: Program, pool, window_rounds: int, window_s: float
     rounds profiled after the window: once with the device's activity alone,
     which the metrics read, once with the host's too, for the breakdown's
     idle attribution."""
-    cfg, tr = cell["config"], cell["traffic"]
+    cfg, tr, model = cell["config"], cell["traffic"], cell["reference"]
     n = tr["trace_rounds"]
     rounds_fn = lambda: [prog.round(pool[i % len(pool)]) for i in range(n)]
     traced = trace.profile(rounds_fn, lambda: _sync(dev), host=False)
@@ -159,9 +159,9 @@ def _traced(cell: Dict, prog: Program, pool, window_rounds: int, window_s: float
     ctx = {"traced": traced, "rounds": n, "steps": n * tr["P"],
            "exchanges": n * (tr["P"] // tr["Q"]), "window_rounds": window_rounds,
            "window_s": window_s, "peaks": card,
-           "round_flops": counts.round_flops(cfg["model"], tr, cfg["n_tower"]),
+           "round_flops": counts.round_flops(model, cfg["model"], tr, cfg["n_tower"]),
            "exchange_bytes": counts.exchange_bytes(cfg["model"], tr, prog.layout),
-           "round_scan_bytes": counts.round_scan_bytes(cfg["model"], tr, cfg["n_tower"])}
+           "round_scan_bytes": counts.round_scan_bytes(model, cfg["model"], tr, cfg["n_tower"])}
     metrics = {}
     for m in cell["per_layer"]:
         value = m["module"].read(ctx)
@@ -224,6 +224,7 @@ def run(cell: Dict, seed: int, seconds: float, trace_on: bool, dev, t_start: flo
     values = check.numbers(prog_losses, ref_losses, prog_norms, ref_norms, tr["Q"])
     ok, checks = check.verdict(values, cell["limits"])
     log(f"reference: {time.perf_counter() - t:.3f} s")
+    log(f"not compared: {({k: v for k, v in values.items() if k not in checks})}")
     log(f"losses program {prog_losses}\nlosses reference {ref_losses}")
     log(f"set-up parts (s): {parts}")
     for c in checks.values():

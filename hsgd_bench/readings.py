@@ -42,10 +42,10 @@ def fault_runs(cell, seed, batches, dev):
     out, tr = {}, cell["traffic"]
     step = RR.local_step
 
-    def half_step(cfg, pod, stale, batch, eta):
+    def half_step(model, cfg, pod, stale, batch, eta):
         h = batch["y"].shape[0] // 2
         stale = {"theta0": stale["theta0"], "z1": stale["z1"][:h], "z2": stale["z2"][:h]}
-        return step(cfg, pod, stale, {k: v[:h] for k, v in batch.items()}, eta)
+        return step(model, cfg, pod, stale, {k: v[:h] for k, v in batch.items()}, eta)
 
     with mock.patch.object(RR, "local_step", half_step):
         out["half_batch"] = harness.reference_rounds(cell, seed, batches, dev)
@@ -53,10 +53,10 @@ def fault_runs(cell, seed, batches, dev):
         out["uncompressed"] = harness.reference_rounds(cell, seed, batches, dev)
     exch, lam, last = RR.exchange, tr["P"] // tr["Q"], {"calls": 0}
 
-    def first_only(cfg, pod, batch, k, b):
+    def first_only(model, cfg, pod, batch, k, b):
         # a round calls the exchange Λ times a pod in turn: keep the first
         if last["calls"] % lam == 0:
-            last["msg"] = exch(cfg, pod, batch, k, b)
+            last["msg"] = exch(model, cfg, pod, batch, k, b)
         last["calls"] += 1
         return last["msg"]
 
@@ -100,8 +100,9 @@ def main(argv=None) -> int:
     for i, seed in enumerate(args.seeds):
         t0 = time.perf_counter()
         prog = harness.Program(cell, seed, dev)
+        # drawn as a run draws them, check rounds and pool together
         batches = tokens.rounds(tr, cell["config"]["model"]["vocab_size"], seed,
-                               tr["check_rounds"], dev)
+                                tr["check_rounds"] + tr["pool_rounds"], dev)[:tr["check_rounds"]]
         p = prog.check_rounds(batches)
         t_prog = time.perf_counter() - t0
         del prog

@@ -32,11 +32,35 @@ input) and one B/C group. RMSNorm's epsilon is 1e-6 everywhere.
 
 Parameters are a nested dict per pod; ``param_layout`` gives every leaf's
 shape and the distribution the benchmark draws it from.
+
+This module is one reference module of the harness: a configuration file
+names its module under ``"reference"`` (``"model"``, this one, when it names
+none) and ``spec.load_cell`` loads ``reference/<name>.py`` by its path. Every
+reference module holds these functions (``spec.REFERENCE_CONTRACT``), plain
+PyTorch, importing nothing of the port or of JAX; ``cfg`` is the
+configuration's ``model`` group:
+
+  check_supported(cfg)           raises ValueError for a model it does not cover
+  param_layout(cfg, n_tower)     {θ0, θ1, θ2} of one pod, nested dicts of ``Leaf``s
+  tower(cfg, t, ids)             ζ = h(θ, x): [B, T] token ids -> [B, T, d]
+  loss(cfg, t0, z1, z2, y)       the combined model's mean cross-entropy
+  backbone_flops(cfg, batch, seq)           forward FLOPs of θ0's body over
+                                            [batch, seq]: {"weight", "act"}
+  tower_flops(cfg, batch, seq, n_tower)     the same for one tower
+  in_proj_flops(cfg)                        forward FLOPs a token of θ0's
+                                            first in-projection
+  backbone_scans(cfg)                       the scans a forward of θ0 runs:
+  tower_scans(cfg, n_tower)                 [(state floats a token, how many)]
+
+The FLOP counts follow ``counts.py``'s rules ("weight": products with a
+weight operand, "act": products of two activations) and leave out the
+head, which ``counts.py`` counts with the split's structure, the exchange
+and the scans' bytes.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -278,3 +302,74 @@ def loss(cfg: Dict, t0, z1, z2, y):
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, y.long()[..., None])[..., 0]
     return torch.mean(lse - ll)
+
+
+# ---------------------------------------------------------------------------
+# Work counts (the model's part of ``hsgd_bench/counts.py``)
+# ---------------------------------------------------------------------------
+
+
+def _mamba_layer_flops(cfg: Dict, tokens: int) -> Dict[str, float]:
+    """Forward FLOPs of one Mamba layer over ``tokens`` tokens: ``weight``
+    products, ``act`` products of two activations, and ``in_proj`` (the
+    in-projection alone, whose input gradient is counted apart)."""
+    k = dims(cfg)
+    d, d_in, N = k["d"], k["d_in"], k["N"]
+    if cfg["ssm_version"] == 1:
+        w_in = d * 2 * d_in
+        weight = w_in + d_in * (2 * N + k["R"]) + k["R"] * d_in + d_in * d
+        act = d_in * N  # y = C·h
+    else:
+        w_in = d * (2 * d_in + 2 * N + k["H"])
+        weight = w_in + d_in * d
+        act = k["H"] * k["P"] * N
+    return {"weight": 2.0 * tokens * weight, "act": 2.0 * tokens * act,
+            "in_proj": 2.0 * tokens * w_in}
+
+
+def _shared_block_flops(cfg: Dict, batch: int, seq: int) -> Dict[str, float]:
+    k = dims(cfg)
+    d, H, KH, hd, ff = k["d"], k["heads"], k["kv_heads"], k["hd"], k["ff"]
+    tokens = batch * seq
+    weight = 2.0 * tokens * (d * H * hd + 2 * d * KH * hd + H * hd * d + 3 * d * ff)
+    pairs = seq * (seq + 1) / 2
+    act = 2 * (2.0 * batch * H * hd * pairs)  # scores and the weighted sum of values
+    return {"weight": weight, "act": act}
+
+
+def backbone_flops(cfg: Dict, batch: int, seq: int) -> Dict[str, float]:
+    """Forward FLOPs of θ0's Mamba stack and shared blocks over [batch, seq]."""
+    layer = _mamba_layer_flops(cfg, batch * seq)
+    L = cfg["num_layers"]
+    out = {"weight": L * layer["weight"], "act": L * layer["act"]}
+    if cfg["family"] == "hybrid":
+        blocks = L // (cfg["hybrid_attn_every"] or L)
+        sb = _shared_block_flops(cfg, batch, seq)
+        out = {key: out[key] + blocks * sb[key] for key in out}
+    return out
+
+
+def tower_flops(cfg: Dict, batch: int, seq: int, n_tower: int) -> Dict[str, float]:
+    """Forward FLOPs of one tower's Mamba blocks over [batch, seq]."""
+    layer = _mamba_layer_flops({**cfg, "family": "ssm"}, batch * seq)
+    return {key: n_tower * layer[key] for key in ("weight", "act")}
+
+
+def in_proj_flops(cfg: Dict) -> float:
+    """Forward FLOPs of θ0's first in-projection, a token."""
+    return _mamba_layer_flops(cfg, 1)["in_proj"]
+
+
+def _scan_state(cfg: Dict) -> int:
+    k = dims(cfg)
+    return k["d_in"] * k["N"] if cfg["ssm_version"] == 1 else k["H"] * k["P"] * k["N"]
+
+
+def backbone_scans(cfg: Dict) -> List[Tuple[int, int]]:
+    """One scan a Mamba layer of θ0."""
+    return [(_scan_state(cfg), cfg["num_layers"])]
+
+
+def tower_scans(cfg: Dict, n_tower: int) -> List[Tuple[int, int]]:
+    """One scan a Mamba block of a tower."""
+    return [(_scan_state({**cfg, "family": "ssm"}), n_tower)]

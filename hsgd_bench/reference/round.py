@@ -13,14 +13,16 @@ A round over G pods (each a hospital-device pair holding {θ0, θ1, θ2}):
 
 The loss a step reports is the hospital's, averaged over the pods. Pods
 are independent between aggregations, so they are run one after another.
+``model`` is the cell's reference module (``reference/model.py`` states
+its contract), which gives the towers and the loss.
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict, List
 
 import torch
 
-from hsgd_bench.reference import model as M
 from hsgd_bench.reference.compress import compress_leaf
 
 
@@ -50,11 +52,12 @@ def global_aggregation(pods: List[Dict]) -> None:
                 x.copy_(mean)
 
 
-def exchange(cfg: Dict, pod: Dict, batch: Dict, k_frac: float, levels: int) -> Dict:
+def exchange(model: ModuleType, cfg: Dict, pod: Dict, batch: Dict, k_frac: float,
+             levels: int) -> Dict:
     """The compressed message {θ0, ζ1, ζ2} of one pod."""
     with torch.no_grad():
-        z1 = M.tower(cfg, pod["theta1"], batch["x1"])
-        z2 = M.tower(cfg, pod["theta2"], batch["x2"])
+        z1 = model.tower(cfg, pod["theta1"], batch["x1"])
+        z2 = model.tower(cfg, pod["theta2"], batch["x2"])
         return {"theta0": tree_map(lambda x: compress_leaf(x, k_frac, levels), pod["theta0"]),
                 "z1": compress_leaf(z1, k_frac, levels), "z2": compress_leaf(z2, k_frac, levels)}
 
@@ -74,15 +77,16 @@ def _grads(loss_fn, tree):
     return value.detach(), [(path, g) for (path, _), g in zip(flat, grads)]
 
 
-def local_step(cfg: Dict, pod: Dict, stale: Dict, batch: Dict, eta: float) -> torch.Tensor:
+def local_step(model: ModuleType, cfg: Dict, pod: Dict, stale: Dict, batch: Dict,
+               eta: float) -> torch.Tensor:
     """Eqs. (5)–(7) for one pod; returns the hospital's loss."""
     def hospital(t):
-        return M.loss(cfg, t["theta0"], M.tower(cfg, t["theta1"], batch["x1"]), stale["z2"],
-                      batch["y"])
+        return model.loss(cfg, t["theta0"], model.tower(cfg, t["theta1"], batch["x1"]),
+                          stale["z2"], batch["y"])
 
     def device(t):
-        return M.loss(cfg, stale["theta0"], stale["z1"], M.tower(cfg, t["theta2"], batch["x2"]),
-                      batch["y"])
+        return model.loss(cfg, stale["theta0"], stale["z1"],
+                          model.tower(cfg, t["theta2"], batch["x2"]), batch["y"])
 
     value, g01 = _grads(hospital, {"theta0": pod["theta0"], "theta1": pod["theta1"]})
     _, g2 = _grads(device, {"theta2": pod["theta2"]})
@@ -95,8 +99,8 @@ def local_step(cfg: Dict, pod: Dict, stale: Dict, batch: Dict, eta: float) -> to
     return value
 
 
-def run_round(cfg: Dict, pods: List[Dict], batches: Dict, eta: float, P: int, Q: int,
-              k_frac: float, levels: int) -> torch.Tensor:
+def run_round(model: ModuleType, cfg: Dict, pods: List[Dict], batches: Dict, eta: float,
+              P: int, Q: int, k_frac: float, levels: int) -> torch.Tensor:
     """One round on ``pods`` (updated in place); ``batches`` leaves lead with
     [Λ, G]. Returns the [P] pod-mean hospital losses."""
     global_aggregation(pods)
@@ -104,8 +108,8 @@ def run_round(cfg: Dict, pods: List[Dict], batches: Dict, eta: float, P: int, Q:
     for g, pod in enumerate(pods):
         for i in range(P // Q):
             batch = {name: x[i, g] for name, x in batches.items()}
-            stale = exchange(cfg, pod, batch, k_frac, levels)
+            stale = exchange(model, cfg, pod, batch, k_frac, levels)
             for q in range(Q):
-                losses[g, i * Q + q] = local_step(cfg, pod, stale, batch, eta)
+                losses[g, i * Q + q] = local_step(model, cfg, pod, stale, batch, eta)
             del stale
     return losses.mean(dim=0)

@@ -12,9 +12,9 @@ from hsgd_bench import spec
 CELLS = tuple(w["name"] for w in spec.benchmark()["workloads"])
 
 
-def smoke_cell(name: str, seq: int = 8):
+def smoke_cell(name: str, seq: int = 8, root=spec.ROOT):
     from repro_torch.common.config import get_config
-    cell = spec.load_cell(name, spec.benchmark())
+    cell = spec.load_cell(name, spec.benchmark(root), root)
     model = dataclasses.asdict(get_config(cell["config"]["model"]["name"], smoke=True))
     model["dtype"] = "float32"
     cell["config"] = {**cell["config"], "model": model}

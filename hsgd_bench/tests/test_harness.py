@@ -13,7 +13,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from hsgd_bench import counts, spec, trace
+from hsgd_bench import check, counts, spec, trace
 from hsgd_bench import weights as W
 from hsgd_bench.reference import model as RM
 from hsgd_bench.tests.conftest import CELLS, smoke_cell
@@ -101,13 +101,119 @@ def test_a_new_cell_is_new_files(tmp_path, cpu_run):
     assert out["correct"] and out["metrics"]["rounds_traced"]["value"] == 1.0
 
 
+def _named_reference(root: Path, module: str, source) -> str:
+    """A copy of the harness under ``root`` with a configuration that names
+    ``reference/<module>.py`` (written from ``source`` unless None) and a cell
+    of it, added as files and entries only; returns the cell's name."""
+    shutil.copytree(HERE, root / "hsgd_bench", ignore=shutil.ignore_patterns("__pycache__"))
+    bench = spec.benchmark()
+    cfg = json.loads((HERE / "configs" / "falcon-mamba-7b-16L.json").read_text())
+    cfg["name"], cfg["reference"] = "falcon-mamba-7b-named", module
+    (root / "hsgd_bench/configs/falcon-mamba-7b-named.json").write_text(json.dumps(cfg))
+    if source is not None:
+        (root / "hsgd_bench/reference" / f"{module}.py").write_text(source)
+    cell = "falcon-mamba-7b-named.seq256"
+    (root / "hsgd_bench/limits" / f"{cell}.json").write_text(
+        (HERE / "limits" / "falcon-mamba-7b-16L.seq256.json").read_text())
+    bench["configs"].append({**bench["configs"][0], "name": "falcon-mamba-7b-named",
+                             "file": "hsgd_bench/configs/falcon-mamba-7b-named.json"})
+    bench["workloads"].append({"name": cell, "config": "falcon-mamba-7b-named",
+                               "traffic": "seq256", "chips": 1, "why": "a test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return cell
+
+
+MODEL_SOURCE = (HERE / "reference" / "model.py").read_text()
+# the term times 0, so that its leaf stays in the graph with a zero gradient
+NO_D_SKIP = ('y = torch.einsum("btcn,btn->btc", hs, Cm) + p["d_skip"] * xc',
+             'y = torch.einsum("btcn,btn->btc", hs, Cm) + 0.0 * p["d_skip"] * xc')
+
+
+@pytest.mark.parametrize("module, fault", [("model_twin", False), ("model_no_d_skip", True)])
+def test_a_new_architecture_is_new_files(tmp_path, cpu_run, module, fault):
+    """A configuration that names a reference module of its own, added as
+    files and entries with no file of the harness edited, is checked against
+    that module: a copy of ``model.py`` passes, the copy whose Mamba-1 mixer
+    drops the D skip term fails."""
+    source = MODEL_SOURCE.replace(*NO_D_SKIP) if fault else MODEL_SOURCE
+    assert (source == MODEL_SOURCE) is not fault
+    name = _named_reference(tmp_path, module, source)
+    cell = smoke_cell(name, root=tmp_path)
+    assert cell["reference"].__file__ == str(tmp_path / "hsgd_bench/reference" / f"{module}.py")
+    out = cpu_run(cell)
+    assert out["correct"] is not fault, out["checks"]
+
+
+@pytest.mark.parametrize("module, source, says", [
+    ("model_absent", None, "no module"),
+    ("model_no_loss", MODEL_SOURCE.replace("def loss(", "def _loss("), "lacks loss of the"),
+])
+def test_a_bad_reference_key_fails_before_the_device(tmp_path, module, source, says):
+    """A configuration whose ``reference`` names no module, or a module
+    without a function of the contract, stops ``spec.load_cell``, and so a
+    run before it looks for the card."""
+    name = _named_reference(tmp_path, module, source)
+    with pytest.raises(SystemExit, match="configuration key 'reference'") as err:
+        spec.load_cell(name, spec.benchmark(tmp_path), tmp_path)
+    assert says in str(err.value) and module in str(err.value)
+    out = subprocess.run([sys.executable, "hsgd_bench/run.py", "--workload", name, "--seed", "1",
+                          "--seconds", "1", "--trace", "0"], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 1 and out.stdout == "" and says in out.stderr, out.stderr[-2000:]
+
+
+FALCON_THETA0 = [
+    ("theta0/final_norm/scale", ((4096,), "ones", 0.0)),
+    ("theta0/head/w", ((4096, 65024), "normal", 0.02)),
+    ("theta0/layers/mamba/a_log", ((16, 8192, 16), "zeros", 0.0)),
+    ("theta0/layers/mamba/conv_b", ((16, 8192), "zeros", 0.0)),
+    ("theta0/layers/mamba/conv_w", ((16, 4, 8192), "normal", 0.5)),
+    ("theta0/layers/mamba/d_skip", ((16, 8192), "ones", 0.0)),
+    ("theta0/layers/mamba/dt_bias", ((16, 8192), "zeros", 0.0)),
+    ("theta0/layers/mamba/w_bcdt", ((16, 8192, 288), "normal", 0.002762135864009951)),
+    ("theta0/layers/mamba/w_dt", ((16, 256, 8192), "normal", 0.1)),
+    ("theta0/layers/mamba/w_in", ((16, 4096, 16384), "normal", 0.00390625)),
+    ("theta0/layers/mamba/w_out", ((16, 8192, 4096), "normal", 0.002762135864009951)),
+    ("theta0/layers/norm/scale", ((16, 4096), "ones", 0.0)),
+]
+FALCON_TOWER = [
+    ("embed/table", ((65024, 4096), "embed", 0.02)),
+    ("layers/mamba/a_log", ((1, 8192, 16), "zeros", 0.0)),
+    ("layers/mamba/conv_b", ((1, 8192), "zeros", 0.0)),
+    ("layers/mamba/conv_w", ((1, 4, 8192), "normal", 0.5)),
+    ("layers/mamba/d_skip", ((1, 8192), "ones", 0.0)),
+    ("layers/mamba/dt_bias", ((1, 8192), "zeros", 0.0)),
+    ("layers/mamba/w_bcdt", ((1, 8192, 288), "normal", 0.011048543456039804)),
+    ("layers/mamba/w_dt", ((1, 256, 8192), "normal", 0.1)),
+    ("layers/mamba/w_in", ((1, 4096, 16384), "normal", 0.015625)),
+    ("layers/mamba/w_out", ((1, 8192, 4096), "normal", 0.011048543456039804)),
+    ("layers/norm/scale", ((1, 4096), "ones", 0.0)),
+    ("norm/scale", ((4096,), "ones", 0.0)),
+]
+
+
+def test_the_falcon_cell_reads_what_it_read():
+    """The falcon cell's layout (leaf order, shapes, draws) and the counts its
+    per-layer metrics divide by, exactly as the harness gave them before a
+    configuration could name its reference."""
+    cell = spec.load_cell("falcon-mamba-7b-16L.seq256", spec.benchmark())
+    cfg, tr, model = cell["config"], cell["traffic"], cell["reference"]
+    assert cell["reference"].__file__ == str(HERE / "reference" / "model.py")
+    layout = model.param_layout(cfg["model"], cfg["n_tower"])
+    towers = [(f"theta{i}/{path}", leaf) for i in (1, 2) for path, leaf in FALCON_TOWER]
+    assert [("/".join(path), leaf) for path, leaf in W.leaves(layout)] == FALCON_THETA0 + towers
+    assert counts.round_flops(model, cfg["model"], tr, cfg["n_tower"]) == 82371567157248.0
+    assert counts.round_scan_bytes(model, cfg["model"], tr, cfg["n_tower"]) == 571599749120.0
+    assert counts.exchange_bytes(cfg["model"], tr, layout) == 31254970368.0
+
+
 @pytest.mark.parametrize("traced", [False, True])
 def test_result_line(cpu_run, traced):
     out = cpu_run(smoke_cell(CELLS[0]), trace=traced)
     assert list(out)[-1] == "checks" and list(out)[:5] == ["correct", "attempted", "failed",
                                                             "metrics", "device"]
     assert out["correct"] is True and out["failed"] == 0 and out["attempted"] % 16 == 0
-    assert set(out["checks"]) == {"loss_gap", "update_gap", "change_gap"}
+    assert set(out["checks"]) == {"loss_gap", "update_gap", "change_gap_median"}
     for c in out["checks"].values():
         assert 0 <= c["value"] <= c["limit"]
     if traced:
@@ -116,6 +222,30 @@ def test_result_line(cpu_run, traced):
     else:
         assert set(out["metrics"]) == {"train_samples_per_s", "peak_device_gib", "setup_s"}
     json.dumps(out, allow_nan=False)
+
+
+def _norms(gaps):
+    """{round: {(pod, leaf): ‖Δ‖}} pairs whose leaves read ``gaps`` (the reference's all 1)."""
+    ref = {(0, (str(i),)): 1.0 for i in range(len(gaps))}
+    prog = {key: 1.0 + g for key, g in zip(ref, gaps)}
+    return {1: ref, 2: ref}, {1: ref, 2: prog}
+
+
+@pytest.mark.parametrize("gaps, median, worst", [
+    ([0.0] * 8, 0.0, 0.0),
+    ([0.0] * 7 + [3e-4], 0.0, 3e-4),  # one leaf far out: the median holds, the worst shows it
+    ([1e-3] * 5 + [0.0] * 3, 1e-3, 1e-3),  # most leaves off: the median sees it
+    ([0.0] * 7 + [math.nan], math.inf, math.inf),  # a leaf that is not finite fails
+    ([-1.0] * 8, 1.0, 1.0),  # a state left unchanged reads 1
+])
+def test_change_gap_is_the_median_leafs(gaps, median, worst):
+    ref, prog = _norms(gaps)
+    values = check.numbers([[1.0]], [[1.0]], prog, ref, 1)
+    assert values["update_gap"] == 0.0
+    assert values["change_gap_median"] == pytest.approx(median)
+    assert values["change_gap_worst"] == pytest.approx(worst)
+    ok, checks = check.verdict(values, {"loss_gap": 0, "update_gap": 0, "change_gap_median": 1e-4})
+    assert set(checks) == set(check.NUMBERS) and ok is (median <= 1e-4)
 
 
 TINY = {"family": "ssm", "num_layers": 2, "d_model": 8, "vocab_size": 10, "ssm_state": 4,
@@ -129,9 +259,9 @@ def test_flops_by_hand():
     tower, body, head = 2 * (1088 + 128), 2 * 4 * (1088 + 128), 2 * 4 * 8 * 10
     hospital = 3 * (tower + body + head) - 512 * 2
     device = (body + head) + (2 * 4 * 1088 + 2 * 2 * 4 * 128 + head) - 512 * 2 + 3 * tower
-    assert counts.step_flops(TINY, TINY_TRAFFIC) == hospital + device == 65408
-    assert counts.exchange_flops(TINY, TINY_TRAFFIC) == 2 * tower
-    assert counts.round_flops(TINY, TINY_TRAFFIC) == 65408 + 2 * tower
+    assert counts.step_flops(RM, TINY, TINY_TRAFFIC) == hospital + device == 65408
+    assert counts.exchange_flops(RM, TINY, TINY_TRAFFIC) == 2 * tower
+    assert counts.round_flops(RM, TINY, TINY_TRAFFIC) == 65408 + 2 * tower
 
 
 def test_forward_flops_are_what_torch_counts():
@@ -160,7 +290,7 @@ def test_bytes_by_hand():
     fwd = lambda T: 4 * (3 * T * C + 2 * C)
     bwd = lambda T: 4 * (5 * T * C + 3 * C)
     step = (fwd(2) + bwd(2)) * 2 + 2 * 2 * (fwd(4) + bwd(4))
-    assert counts.round_scan_bytes(TINY, TINY_TRAFFIC) == step + 2 * fwd(2)
+    assert counts.round_scan_bytes(RM, TINY, TINY_TRAFFIC) == step + 2 * fwd(2)
 
 
 def test_trace_arithmetic(tmp_path):
@@ -194,15 +324,21 @@ def test_peaks_are_the_cards_alone(name, want):
     assert (got and got["fp32_flops"]) == want
 
 
-def test_no_jax_or_reference_package_is_loaded(cpu_run):
+def test_no_jax_or_reference_package_is_loaded(tmp_path, cpu_run):
+    """Runs of the falcon cell and of a cell whose configuration names a
+    reference module of its own load nothing of JAX or the JAX package."""
+    named = _named_reference(tmp_path, "model_twin", MODEL_SOURCE)
     code = (
         "import sys, time, torch; sys.path[:0] = ['src', '.']\n"
+        "from pathlib import Path\n"
         "from hsgd_bench import harness, spec, readings\n"
         "from hsgd_bench.tests.conftest import smoke_cell\n"
         "torch.set_num_threads(2)\n"
-        "cell = smoke_cell('falcon-mamba-7b-16L.seq256')\n"
-        "harness.run(cell, 3, 0.01, True, torch.device('cpu'), time.perf_counter(),\n"
-        "            log=lambda m: None)\n"
+        f"for cell in (smoke_cell('falcon-mamba-7b-16L.seq256'),\n"
+        f"             smoke_cell({named!r}, root=Path({str(tmp_path)!r}))):\n"
+        "    harness.run(cell, 3, 0.01, True, torch.device('cpu'), time.perf_counter(),\n"
+        "                log=lambda m: None)\n"
+        "print(cell['reference'].__file__)\n"
         "print(harness.forbidden_modules())\n"
         "print(sorted({m.split('.')[0] for m in sys.modules if m.startswith('hsgd_bench.reference')"
         " or m == 'repro_torch'}))\n"
@@ -211,6 +347,7 @@ def test_no_jax_or_reference_package_is_loaded(cpu_run):
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     lines = out.stdout.strip().splitlines()
+    assert lines[-3] == str(tmp_path / "hsgd_bench/reference/model_twin.py")
     assert lines[-2] == "[]"
     assert "repro_torch" in lines[-1]  # the program ran; its name is not the reference's
 

@@ -1,5 +1,5 @@
 """Weights drawn from the run's seed, on the run's device, in the layout of
-``reference/model.py::param_layout``.
+the cell's reference module's ``param_layout``.
 
 The draw is cut into units: one layer's slice of a leaf under a ``layers``
 stack, else the whole leaf. Each unit has a generator of its own, seeded
